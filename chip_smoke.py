@@ -4,9 +4,10 @@
     python3 chip_smoke.py        # needs one CUDA card; exits 1 without one
 
 Builds the hand-written kernels from ``tpudfs_torch/gpu/csrc`` with nvcc,
-holds each against its plain PyTorch twin on the card, drives the verified
-read into device memory at real size (the port's main path), times each
-kernel at the main path's shapes, and checks every byte that comes out.
+holds each kernel entry (per-chunk CRC32C, fused whole-block CRC32C, GF(2^8)
+matrix product) against its plain PyTorch twin on the card, drives the
+verified read into device memory at real size (the port's main path), times
+each entry at the main path's shapes, and checks every byte that comes out.
 
 Output (stdout): the card's ``nvidia-smi`` name and power limit, one JSON
 line per phase (``device``, ``build``, ``kernels_vs_plain``, ``read_path``,
@@ -31,7 +32,6 @@ import argparse
 import asyncio
 import json
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -48,8 +48,11 @@ from tpudfs_torch.common.erasure import encode
 from tpudfs_torch.gpu import host_to_device, u32_to_i64
 from tpudfs_torch.gpu.crc32c_cuda import (
     block_crc_device,
+    crc32c_blocks_device,
+    crc32c_blocks_plain,
     crc32c_chunks_device,
     crc32c_chunks_plain,
+    fold_table_device,
     inv_contrib,
     word_contrib_table,
 )
@@ -73,6 +76,13 @@ KERNELS = {
         "route": "cuda", "source": "tpudfs_torch/gpu/csrc/crc32c.cu",
         "replaces": "tpudfs/tpu/crc32c_pallas.py:113",
         "wrapper": crc32c_chunks_device,
+    },
+    # The fused whole-block CRC: the chunk CRCs of _crc_pallas and the XLA
+    # fold of block_crc_device (crc32c_pallas.py:150-172) in one launch.
+    "crc32c_blocks": {
+        "route": "cuda", "source": "tpudfs_torch/gpu/csrc/crc32c.cu",
+        "replaces": "tpudfs/tpu/crc32c_pallas.py:113",
+        "wrapper": crc32c_blocks_device,
     },
     "gf256_matmul": {
         "route": "cuda", "source": "tpudfs_torch/gpu/csrc/gf256.cu",
@@ -109,6 +119,14 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> int:
 def _random_words(rng, shape, device) -> torch.Tensor:
     return host_to_device(rng.integers(0, 1 << 32, shape, dtype=np.uint32),
                           device)
+
+
+def _device_words(rng, shape, device) -> torch.Tensor:
+    """Random uint32 words made on ``device`` (for grids of up to a GiB),
+    from a generator seeded by ``rng``."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 62)))
+    return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                         device=device, generator=gen).view(torch.uint32)
 
 
 # ------------------------------------------------------------ phase: read
@@ -323,8 +341,9 @@ def _build() -> dict:
             "kernels": {
                 name: {"so": str(Path(i["so"]).relative_to(REPO)),
                        "nvcc_s": i["seconds"],
-                       "ptxas": [ln for ln in i["ptxas"].splitlines()
-                                 if "registers" in ln or "spill" in ln]}
+                       "ptxas": [ln.strip() for ln in i["ptxas"].splitlines()
+                                 if "registers" in ln or "spill" in ln
+                                 or "Function properties" in ln]}
                 for name, i in info.items()}}
 
 
@@ -349,6 +368,18 @@ def _kernels_vs_plain(device: torch.device, rng) -> dict:
         if err:
             raise AssertionError(f"crc32c_chunks differs at C={c}: {err}")
         crc[str(c)] = err
+    blocks = {}
+    for cpb in (1, 257, 131072):
+        for nblocks in (1, 3, 16):
+            words = _device_words(rng, (nblocks * cpb, 128), device)
+            err = _same(crc32c_blocks_device(words, nblocks),
+                        crc32c_blocks_plain(words, nblocks, wcontrib,
+                                            inv_contrib(),
+                                            fold_table_device(cpb, device)))
+            if err:
+                raise AssertionError(
+                    f"crc32c_blocks differs at cpb={cpb} x {nblocks}: {err}")
+            blocks[f"{cpb}x{nblocks}"] = err
     gf = {}
     for label, mat in _gf_cases():
         coefs = matrix_bits_device(mat, device) if mat.ndim == 2 \
@@ -361,40 +392,46 @@ def _kernels_vs_plain(device: torch.device, rng) -> dict:
             gf[f"{label}/W={w}"] = err
     sync(device)
     return {"phase": "kernels_vs_plain", "exact": True,
-            "crc32c_chunks": crc, "gf256_matmul": gf}
+            "crc32c_chunks": crc, "crc32c_blocks": blocks,
+            "gf256_matmul": gf}
 
 
-def _time_ms(fn, device, runs: int = 25, warmup: int = 3) -> float:
-    """Median of ``runs`` CUDA-event timings of one call, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    sync(device)
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def _time_ms(fn, device, held: bool = True) -> float:
+    """Device time of one call (``kernels.time_ms``); ``held=False`` times
+    single calls, the host's launch latency included."""
+    from tpudfs_torch.gpu import kernels
+
+    with torch.cuda.device(device):
+        return kernels.time_ms(fn, held=held)
 
 
 def _kernel_times(device: torch.device, rng, counts: dict,
                   block_size: int) -> tuple[dict, list]:
     """Kernel and plain times at the main path's shapes: one 64 MiB block's
-    chunk CRCs, and RS(6,3) decode (plus encode) of one 64 MiB block."""
+    chunk CRCs and whole-block CRC, and RS(6,3) decode (plus encode) of one
+    64 MiB block."""
     c = block_size // CHECKSUM_CHUNK_SIZE
     words = _random_words(rng, (c, 128), device)
     wcontrib = host_to_device(word_contrib_table(), device)
     crc_ms = _time_ms(lambda: crc32c_chunks_device(words), device)
+    crc_call = _time_ms(lambda: crc32c_chunks_device(words), device, False)
     crc_plain = _time_ms(lambda: crc32c_chunks_plain(words, wcontrib,
                                                      inv_contrib()), device)
-    block_crc_ms = _time_ms(lambda: block_crc_device(words), device)
     crc_err = _same(crc32c_chunks_device(words),
                     crc32c_chunks_plain(words, wcontrib, inv_contrib()))
     crc_bytes = c * 512 + 32 * 128 * 4 + c * 4
+    fold = fold_table_device(c, device)
+    block_crc_ms = _time_ms(lambda: block_crc_device(words), device)
+    block_crc_call = _time_ms(lambda: block_crc_device(words), device, False)
+    blocks_plain = _time_ms(lambda: crc32c_blocks_plain(
+        words, 1, wcontrib, inv_contrib(), fold), device)
+    blocks_err = _same(block_crc_device(words).reshape(1),
+                       crc32c_blocks_plain(words, 1, wcontrib, inv_contrib(),
+                                           fold))
+    # Words, WCONTRIB, the operator rows the kernel reads (M^0..M^31 and
+    # one M^(32*2^q) per bit of the last tile index), one output word.
+    blocks_bytes = (c * 512 + 32 * 128 * 4
+                    + (32 + (-(-c // 32) - 1).bit_length()) * 32 * 4 + 4)
 
     slen = -(-block_size // 6)
     w = -(-slen // 128) * 128 // 4  # padded shard words (2,796,224 at 64 MiB)
@@ -403,8 +440,10 @@ def _kernel_times(device: torch.device, rng, counts: dict,
     enc = host_to_device(coef_bits(6, 3), device)
     shards = _random_words(rng, (6, w), device)
     dec_ms = _time_ms(lambda: gf_matmul_words(shards, dec), device)
+    dec_call = _time_ms(lambda: gf_matmul_words(shards, dec), device, False)
     dec_plain = _time_ms(lambda: gf_rows_plain(shards, dec), device)
     enc_ms = _time_ms(lambda: gf_matmul_words(shards, enc), device)
+    enc_call = _time_ms(lambda: gf_matmul_words(shards, enc), device, False)
     enc_plain = _time_ms(lambda: gf_rows_plain(shards, enc), device)
     dec_err = _same(gf_matmul_words(shards, dec), gf_rows_plain(shards, dec))
     dec_bytes = 6 * w * 4 * 2 + dec.numel() * 4
@@ -415,14 +454,19 @@ def _kernel_times(device: torch.device, rng, counts: dict,
 
     phase = {
         "phase": "kernel_times", "runs": 25, "stat": "median",
-        "timer": "cuda events", "bound_rate": "3.35 TB/s HBM (H100 SXM)",
-        "crc32c_chunks": {"chunks": c, "ms": crc_ms, "plain_ms": crc_plain,
-                          "bound_ms": bound(crc_bytes),
-                          "block_crc_ms": block_crc_ms},
-        "gf256_decode_6_3": {"words": w, "ms": dec_ms, "plain_ms": dec_plain,
-                             "bound_ms": bound(dec_bytes)},
-        "gf256_encode_6_3": {"words": w, "ms": enc_ms, "plain_ms": enc_plain,
-                             "bound_ms": bound(enc_bytes)},
+        "timer": "cuda events; ms: stream held, 10 calls back to back; "
+                 "call_ms: one call, the host's launch latency included",
+        "bound_rate": "3.35 TB/s HBM (H100 SXM)",
+        "crc32c_chunks": {"chunks": c, "ms": crc_ms, "call_ms": crc_call,
+                          "plain_ms": crc_plain, "bound_ms": bound(crc_bytes)},
+        "crc32c_blocks": {"chunks": c, "nblocks": 1,
+                          "block_crc_ms": block_crc_ms,
+                          "call_ms": block_crc_call, "plain_ms": blocks_plain,
+                          "bound_ms": bound(blocks_bytes)},
+        "gf256_decode_6_3": {"words": w, "ms": dec_ms, "call_ms": dec_call,
+                             "plain_ms": dec_plain, "bound_ms": bound(dec_bytes)},
+        "gf256_encode_6_3": {"words": w, "ms": enc_ms, "call_ms": enc_call,
+                             "plain_ms": enc_plain, "bound_ms": bound(enc_bytes)},
         "library_ms": None, "library_reason": NO_LIBRARY,
         "bound_by": "bytes (no published integer-ALU peak)",
     }
@@ -430,6 +474,9 @@ def _kernel_times(device: torch.device, rng, counts: dict,
         {"name": "crc32c_chunks", "launches": counts["crc32c_chunks"],
          "max_abs_err": crc_err, "ms": crc_ms, "plain_ms": crc_plain,
          "bound_ms": bound(crc_bytes)},
+        {"name": "crc32c_blocks", "launches": counts["crc32c_blocks"],
+         "max_abs_err": blocks_err, "ms": block_crc_ms,
+         "plain_ms": blocks_plain, "bound_ms": bound(blocks_bytes)},
         {"name": "gf256_matmul", "launches": counts["gf256_matmul"],
          "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain,
          "bound_ms": bound(dec_bytes)},

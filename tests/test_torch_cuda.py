@@ -53,6 +53,64 @@ def test_crc_kernel_rejects_strided_input(cuda_device):
     words = host_to_device(_words((8, 256), 1), cuda_device)[:, :128]
     with pytest.raises(ValueError, match="contiguous"):
         crc32c_cuda.crc32c_chunks_device(words)
+    with pytest.raises(ValueError, match="contiguous"):
+        crc32c_cuda.crc32c_blocks_device(words, 2)
+    flat = host_to_device(_words((9 * 128,), 2), cuda_device)
+    misaligned = flat[1 : 1 + 8 * 128].view(8, 128)  # 4 bytes past 16
+    for fn in (crc32c_cuda.crc32c_chunks_device,
+               crc32c_cuda.block_crc_device):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(misaligned)
+
+
+def _blocks_plain(words: np.ndarray, nblocks: int, fold=None) -> np.ndarray:
+    cpu = host_to_device(words, CPU)
+    return u32_to_numpy(crc32c_cuda.crc32c_blocks_device(
+        cpu, nblocks, fold=None if fold is None else fold.cpu()))
+
+
+@pytest.mark.parametrize("nblocks", [1, 3, 16])
+@pytest.mark.parametrize("cpb", [1, 255, 257, 4096])
+def test_fused_block_kernel_matches_plain(cuda_device, cpb, nblocks):
+    words = _words((nblocks * cpb, 128), cpb * 31 + nblocks)
+    on_card = host_to_device(words, cuda_device)
+    before = crc32c_cuda.crc32c_blocks_device.launches
+    chunks_before = crc32c_cuda.crc32c_chunks_device.launches
+    got = u32_to_numpy(crc32c_cuda.batch_block_crc_device(on_card, nblocks))
+    assert crc32c_cuda.crc32c_blocks_device.launches == before + 1
+    assert crc32c_cuda.crc32c_chunks_device.launches == chunks_before
+    np.testing.assert_array_equal(got, _blocks_plain(words, nblocks))
+    # Two runs give the same words, whatever order the atomics landed in.
+    again = u32_to_numpy(crc32c_cuda.batch_block_crc_device(on_card, nblocks))
+    np.testing.assert_array_equal(again, got)
+
+
+def test_fused_block_kernel_overrides_drive_the_result(cuda_device):
+    from tpudfs_torch.gpu import state
+
+    cpb = 257
+    keys = ["word_contrib_table", "inv_contrib", f"combine_fold_table/{cpb}"]
+    tables = state.own_tables(keys, cuda_device)
+    words = _words((3 * cpb, 128), 77)
+    on_card = host_to_device(words, cuda_device)
+    fold = tables[f"combine_fold_table/{cpb}"]
+    want = _blocks_plain(words, 3)
+    got = crc32c_cuda.crc32c_blocks_device(
+        on_card, 3, wcontrib=tables["word_contrib_table"],
+        inv=tables["inv_contrib"], fold=fold)
+    np.testing.assert_array_equal(u32_to_numpy(got), want)
+    np.testing.assert_array_equal(u32_to_numpy(
+        crc32c_cuda.batch_block_crc_device(on_card, 3, fold=fold)), want)
+    one = host_to_device(words[:cpb], cuda_device)
+    before = crc32c_cuda.crc32c_blocks_device.launches
+    block = crc32c_cuda.block_crc_device(one, fold=fold)
+    assert crc32c_cuda.crc32c_blocks_device.launches == before + 1
+    assert u32_to_numpy(block.reshape(1))[0] == want[0]
+    # A changed fold table changes the result: the kernel reads it.
+    other = fold.clone()
+    other[cpb - 2] = other[cpb - 1]  # M^1 replaced by the identity
+    assert u32_to_numpy(crc32c_cuda.block_crc_device(one, fold=other)
+                        .reshape(1))[0] != want[0]
 
 
 @pytest.mark.parametrize("w", [32, 2047, 65536])
@@ -81,6 +139,7 @@ def test_read_path_on_card_launches_both_kernels(cuda_device, tmp_path):
                              block_size=1 << 20, nblocks=3, tail_size=70_001)
     assert r["tamper"]["recovered"]
     assert r["launches"]["crc32c_chunks"] > 0
+    assert r["launches"]["crc32c_blocks"] > 0
     assert r["launches"]["gf256_matmul"] > 0
 
 

@@ -32,7 +32,8 @@ def test_read_path_small_on_cpu(tmp_path):
     assert r["tamper"] == {"block": "blk_smoke_big_2", "flagged": True,
                            "recovered": True}
     # The CPU path runs the plain twins: no kernel launch is counted.
-    assert r["launches"] == {"crc32c_chunks": 0, "gf256_matmul": 0}
+    assert r["launches"] == {"crc32c_chunks": 0, "crc32c_blocks": 0,
+                             "gf256_matmul": 0}
     assert list(tmp_path.iterdir()) == []  # the layout is removed
 
 

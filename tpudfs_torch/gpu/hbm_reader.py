@@ -3,9 +3,9 @@ device — port of ``tpudfs/tpu/hbm_reader.py`` (the per-block path).
 
 Each block's bytes go from the fetch buffer (a zero-padded chunk grid the
 client reads straight into) to its target device in one copy. The
-per-512-byte-chunk CRC32C runs on the device (kernel 1, ``crc32c.cu``), and
-a GF(2) combine-fold turns the chunk CRCs into the whole-block checksum
-recorded at CompleteFile, with no host readback. Under ``verify="lazy"``
+whole-block CRC32C recorded at CompleteFile is computed on the device by
+one launch of the fused kernel (``crc32c.cu``: the per-512-byte-chunk CRCs
+and their GF(2) combine-fold), with no host readback. Under ``verify="lazy"``
 every block's verdict stays on the device until :meth:`HbmReader.confirm`
 settles them all with one device→host copy. A degraded erasure-coded block
 is rebuilt on the device with kernel 2 (``gf256.cu``).

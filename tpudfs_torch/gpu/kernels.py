@@ -7,8 +7,9 @@ stream as ``c_void_p``). The library's file name carries a hash of its
 source, so an edited kernel is rebuilt and a stale one is never loaded.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
-Only the CUDA path imports this module: the CPU path (plain PyTorch twins)
-never builds or loads anything.
+:func:`time_ms` times a call on the card with CUDA events (``chip_smoke.py``
+and ``probe_crc32c.py`` use it). Only the CUDA path imports this module:
+the CPU path (plain PyTorch twins) never builds or loads anything.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import statistics
 import subprocess
 import threading
 import time
@@ -27,14 +29,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpudfs_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: C signatures: name -> (symbol, argtypes).
+_P, _LL, _I, _U = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
+#: C signatures: library name -> {symbol: argtypes}.
 _SIGNATURES = {
-    "crc32c": ("tpudfs_crc32c_chunks",
-               [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]),
-    "gf256": ("tpudfs_gf256_matmul",
-              [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+    "crc32c": {
+        "tpudfs_crc32c_chunks": [_P, _LL, _P, _U, _P, _P],
+        "tpudfs_crc32c_blocks": [_P, _LL, _LL, _P, _U, _P, _I, _P, _P],
+    },
+    "gf256": {"tpudfs_gf256_matmul": [_P, _LL, _I, _I, _P, _P, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -102,10 +104,10 @@ def lib(name: str) -> ctypes.CDLL:
         if not so.exists():
             build([name])
         handle = ctypes.CDLL(str(so))
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(handle, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in _SIGNATURES.get(name, {}).items():
+            fn = getattr(handle, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         handle.tpudfs_cuda_error_string.argtypes = [ctypes.c_int]
         handle.tpudfs_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = handle
@@ -118,3 +120,40 @@ def check(name: str, rc: int) -> None:
     if rc != 0:
         msg = lib(name).tpudfs_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}: {msg}")
+
+
+#: Calls timed between one pair of events when the stream is held.
+HELD_CALLS = 10
+#: Device cycles of the sleep that holds the stream (about 3 ms), longer
+#: than the host takes to enqueue HELD_CALLS calls of any kernel wrapper.
+_HOLD_CYCLES = 5_000_000
+
+
+def time_ms(fn, *, held: bool = True, runs: int = 25, warmup: int = 3) -> float:
+    """Median over ``runs`` of the CUDA-event time of one call of ``fn`` on
+    the current stream, after ``warmup`` calls.
+
+    ``held``: a sleep kernel holds the stream while the start event,
+    HELD_CALLS calls and the end event are enqueued, so the events bracket
+    device time alone, back to back. Otherwise one call lies between the
+    events and, where the host takes longer to launch it than the device to
+    run it, the host's launch latency is part of the time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    calls = HELD_CALLS if held else 1
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if held:
+            torch.cuda._sleep(_HOLD_CYCLES)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
