@@ -11,9 +11,9 @@ each entry at the main path's shapes, and checks every byte that comes out.
 
 Output (stdout): the card's ``nvidia-smi`` name and power limit, one JSON
 line per phase (``device``, ``build``, ``kernels_vs_plain``, ``read_path``,
-``kernel_times``, ``kernels``), the kernel table ``{"kernels": [...]}``,
-and last ``{"ok": true, "device": {...}}``. Any mismatch raises: the run
-exits non-zero and prints no result.
+``ec_rebuild``, ``kernel_times``, ``kernels``), the kernel table
+``{"kernels": [...]}``, and last ``{"ok": true, "device": {...}}``. Any
+mismatch raises: the run exits non-zero and prints no result.
 
 The read path: three replica stores laid out under ``build/`` in the
 chunkserver's on-disk format (3x replication at rest) holding a 1 GiB file
@@ -32,6 +32,7 @@ import argparse
 import asyncio
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -63,6 +64,8 @@ from tpudfs_torch.gpu.rs_cuda import (
     gf_matmul_words,
     gf_rows_plain,
     matrix_bits_device,
+    pad_shard_len,
+    rs_decode_device,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -199,7 +202,11 @@ async def _pass(reader: HbmReader, sources, device) -> dict:
     sync(device)  # the timed window holds no device->host copy
     read_s = time.perf_counter() - t0
     tail = await reader.read_file_to_device_blocks("/smoke/tail", verify="lazy")
+    sync(device)
+    t0 = time.perf_counter()
     ec = await reader.read_file_to_device_blocks("/smoke/ec", verify="lazy")
+    sync(device)
+    ec_read_s = time.perf_counter() - t0
     every = big + tail + ec
     pending = sum(b.pending_crc is not None for b in every)
     t0 = time.perf_counter()
@@ -213,6 +220,7 @@ async def _pass(reader: HbmReader, sources, device) -> dict:
     read_bytes = sum(b.size for b in big)
     return {"read_bytes": read_bytes, "read_s": read_s,
             "gbps": read_bytes / read_s / 1e9, "confirm_s": confirm_s,
+            "ec_read_s": ec_read_s,
             "blocks": len(every), "pending_at_confirm": pending,
             "tail_block_bytes": tail[-1].size}
 
@@ -247,6 +255,57 @@ async def _host_breakdown(client: LocalClient, metas, device) -> dict:
         sync(device)
         out["h2d_pinned_gbps"] = nbytes / (time.perf_counter() - t0) / 1e9
     return out
+
+
+def _part_ms(fn, device, held: bool = True) -> float:
+    """Time of one call of ``fn``: on a card ``kernels.time_ms`` (``held``:
+    device time alone), on the CPU the median of 5 host-clock runs."""
+    if device.type == "cuda":
+        return _time_ms(fn, device, held)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+async def _ec_rebuild(client: LocalClient, metas, device) -> dict:
+    """The degraded EC block's rebuild (``hbm_reader.py:194-204``) in its
+    parts, each timed alone on the reader's own inputs: the pageable
+    host->device copy of the (k, padded) stack of survivors (one call, the
+    host's part included), the decode kernel (device time), and the copy
+    that ``recon[:, :slen].reshape(-1)`` makes on the device (the shard is
+    padded to 128 bytes, so the slice is not contiguous); and the three in
+    a row, one call."""
+    block = metas["/smoke/ec"]["blocks"][0]
+    k, m = int(block["ec_data_shards"]), int(block["ec_parity_shards"])
+    shards = await client._read_ec_shards(block, local_verify=False)
+    use = tuple(i for i, s in enumerate(shards) if s is not None)[:k]
+    slen = len(shards[use[0]])
+    stack = np.zeros((k, pad_shard_len(slen)), dtype=np.uint8)
+    for r, idx in enumerate(use):
+        stack[r, :slen] = np.frombuffer(shards[idx], dtype=np.uint8)
+    avail = torch.from_numpy(stack).to(device)
+    recon = rs_decode_device(avail, k, m, use)
+
+    def whole():
+        out = rs_decode_device(torch.from_numpy(stack).to(device), k, m, use)
+        return out[:, :slen].reshape(-1)
+
+    return {
+        "phase": "ec_rebuild", "device": str(device), "k": k, "m": m,
+        "shard_bytes": slen, "padded_shard_bytes": stack.shape[1],
+        "timer": "cuda events (kernel_ms, slice_copy_ms: stream held; "
+                 "h2d_ms, whole_ms: one call)" if device.type == "cuda"
+                 else "host clock, median of 5",
+        "h2d_ms": _part_ms(lambda: torch.from_numpy(stack).to(device),
+                           device, held=False),
+        "kernel_ms": _part_ms(lambda: rs_decode_device(avail, k, m, use),
+                              device),
+        "slice_copy_ms": _part_ms(lambda: recon[:, :slen].reshape(-1), device),
+        "whole_ms": _part_ms(whole, device, held=False),
+    }
 
 
 async def _tamper(reader: HbmReader, client: LocalClient, metas, sources,
@@ -309,6 +368,7 @@ def read_path(device: torch.device, *, block_size: int = 64 * MiB,
         tamper = asyncio.run(_tamper(reader, client, metas, sources, device))
         counts = launches()
         host = asyncio.run(_host_breakdown(client, metas, device))
+        ec_rebuild = asyncio.run(_ec_rebuild(client, metas, device))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"phase": "read_path", "device": str(device), "seed": seed,
@@ -316,7 +376,7 @@ def read_path(device: torch.device, *, block_size: int = 64 * MiB,
             "tail_size": tail_size, "ec": list(ec), "ec_lost": list(lost),
             "replicas": 3, "setup_s": setup_s, **passes[-1],
             "first_pass": passes[0], "host": host, "tamper": tamper,
-            "launches": counts}
+            "launches": counts, "ec_rebuild": ec_rebuild}
 
 
 # ---------------------------------------------------------- card phases
@@ -348,13 +408,16 @@ def _build() -> dict:
 
 
 def _gf_cases() -> list[tuple]:
-    """(label, (rows, cols, 8) bit-planes as host arrays) for kernel checks:
-    RS(6,3) and RS(4,2) encode, RS(6,3) decode for three erasure patterns."""
+    """(label, (rows, cols, 8) bit-planes or a (rows, cols) matrix, as host
+    arrays) for kernel checks: RS(6,3) and RS(4,2) encode, RS(6,3) decode for
+    three erasure patterns, RS(10,4) decode, and a one-row matrix."""
     cases = [("encode_6_3", coef_bits(6, 3)), ("encode_4_2", coef_bits(4, 2))]
-    for lost in ((0, 2, 7), (1, 4), (6, 7, 8)):
-        present = tuple(i for i in range(9) if i not in lost)
-        cases.append((f"decode_6_3_lost_{'_'.join(map(str, lost))}",
-                      decode_matrix(6, 3, present)))
+    for k, m, lost in ((6, 3, (0, 2, 7)), (6, 3, (1, 4)), (6, 3, (6, 7, 8)),
+                       (10, 4, (0, 3, 11, 13))):
+        present = tuple(i for i in range(k + m) if i not in lost)
+        cases.append((f"decode_{k}_{m}_lost_{'_'.join(map(str, lost))}",
+                      decode_matrix(k, m, present)))
+    cases.append(("one_row_6", coef_bits(6, 3)[:1]))
     return cases
 
 
@@ -506,7 +569,9 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     emit(_kernels_vs_plain(device, rng))
     result = read_path(device, seed=args.seed)
+    ec_rebuild = result.pop("ec_rebuild")
     emit(result)
+    emit(ec_rebuild)
     counts = result["launches"]
     if not all(counts.values()):
         raise AssertionError(f"a kernel of the main path never launched: {counts}")

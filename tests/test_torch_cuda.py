@@ -113,17 +113,60 @@ def test_fused_block_kernel_overrides_drive_the_result(cuda_device):
                         .reshape(1))[0] != want[0]
 
 
+def _gf_on_card_and_cpu(words: np.ndarray, bits: np.ndarray, device):
+    got = rs_cuda.gf_matmul_words(host_to_device(words, device),
+                                  host_to_device(bits, device))
+    want = rs_cuda.gf_matmul_words(host_to_device(words, CPU),
+                                   host_to_device(bits, CPU))
+    return u32_to_numpy(got), u32_to_numpy(want)
+
+
 @pytest.mark.parametrize("w", [32, 2047, 65536])
 def test_gf_kernel_matches_plain(cuda_device, w):
-    words = _words((6, w), w)
-    for bits in (rs_cuda.coef_bits(6, 3),
-                 rs_cuda._matrix_bits(rs_cuda.decode_matrix(
-                     6, 3, (1, 3, 4, 5, 6, 8)))):
-        got = rs_cuda.gf_matmul_words(host_to_device(words, cuda_device),
-                                      host_to_device(bits, cuda_device))
-        want = rs_cuda.gf_matmul_words(host_to_device(words, CPU),
-                                       host_to_device(bits, CPU))
-        np.testing.assert_array_equal(u32_to_numpy(got), u32_to_numpy(want))
+    """RS(6,3) encode and decode, and a random matrix of every shape with
+    1 <= rows, cols <= 10 (1 to 3 row groups, 4-word and 1-word paths)."""
+    rng = np.random.default_rng(w)
+    words = _words((10, w), w)
+    cases = [rs_cuda.coef_bits(6, 3),
+             rs_cuda._matrix_bits(rs_cuda.decode_matrix(
+                 6, 3, (1, 3, 4, 5, 6, 8)))]
+    cases += [rs_cuda._matrix_bits(rng.integers(0, 256, (rows, cols),
+                                                dtype=np.uint8))
+              for rows in range(1, 11) for cols in range(1, 11)]
+    for bits in cases:
+        got, want = _gf_on_card_and_cpu(words[: bits.shape[1]], bits,
+                                        cuda_device)
+        np.testing.assert_array_equal(got, want, err_msg=str(bits.shape))
+
+
+@pytest.mark.parametrize("rows,cols", [(16, 16), (17, 3), (33, 2), (20, 76),
+                                       (1, 1536)])
+def test_gf_kernel_large_shapes(cuda_device, rows, cols):
+    """More than 16 rows (the input read again per 16), and tables above
+    48 KiB of shared memory (the kernel opts into more)."""
+    mat = np.random.default_rng(rows + cols).integers(0, 256, (rows, cols),
+                                                      dtype=np.uint8)
+    got, want = _gf_on_card_and_cpu(_words((cols, 4096), cols),
+                                    rs_cuda._matrix_bits(mat), cuda_device)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_gf_kernel_one_word_path_and_determinism(cuda_device):
+    """A word view 4 bytes past 16-byte alignment takes the one-word path;
+    it and the aligned 4-word path give the plain twin's words, twice."""
+    bits = host_to_device(rs_cuda._matrix_bits(rs_cuda.decode_matrix(
+        6, 3, (1, 3, 4, 5, 6, 8))), cuda_device)
+    w = 4096
+    flat = host_to_device(_words((6 * w + 1,), 11), cuda_device)
+    misaligned = flat[1 : 1 + 6 * w].view(6, w)
+    assert misaligned.data_ptr() % 16 == 4
+    aligned = misaligned.clone()
+    want = u32_to_numpy(rs_cuda.gf_matmul_words(misaligned.cpu(), bits.cpu()))
+    before = rs_cuda.gf_matmul_words.launches
+    for words in (misaligned, aligned, misaligned, aligned):
+        np.testing.assert_array_equal(
+            u32_to_numpy(rs_cuda.gf_matmul_words(words, bits)), want)
+    assert rs_cuda.gf_matmul_words.launches == before + 4
 
 
 def test_rs_encode_on_card_matches_cpu(cuda_device):

@@ -26,7 +26,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -60,19 +59,14 @@ def slice8_tables() -> np.ndarray:
 def build_baseline(src: Path) -> tuple[dict, str]:
     """Another crc32c.cu as its own library: its bound C entries (the ones
     it has) and the compiler's report."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = kernels.BUILD_DIR / f"libcrc32c_baseline-{digest}.so"
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
-                          str(src)], check=True, capture_output=True, text=True)
-    handle = ctypes.CDLL(str(so))
+    handle, _, report = kernels.build_other(src)
     fns = {}
     for symbol, argtypes in kernels._SIGNATURES["crc32c"].items():
         if hasattr(handle, symbol):
             fns[symbol] = getattr(handle, symbol)
             fns[symbol].argtypes = argtypes
             fns[symbol].restype = ctypes.c_int
-    return fns, out.stdout + out.stderr
+    return fns, report
 
 
 def main(argv=None) -> int:

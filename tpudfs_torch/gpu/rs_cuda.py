@@ -36,7 +36,9 @@ from tpudfs_torch.gpu import (
 
 _LANE = 128
 _BYTE_LSB = 0x01010101  # bit 0 of each packed byte
-#: Shared-memory room of the kernel's staged bit-planes (48 KiB of uint32).
+#: Largest bit-plane array the kernel takes (rows * cols * 8 values, 48 KiB
+#: of uint32; ``csrc/gf256.cu`` states the same limit). Its nibble tables
+#: then take at most 192 KiB of shared memory.
 MAX_COEFS = 48 * 1024 // 4
 
 
