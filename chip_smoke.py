@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py        # needs one CUDA card; exits 1 without one
 
-Builds the hand-written kernels from ``tpudfs_torch/gpu/csrc`` with nvcc,
-holds each kernel entry (per-chunk CRC32C, fused whole-block CRC32C, GF(2^8)
-matrix product) against its plain PyTorch twin on the card, drives the
-verified read into device memory at real size (the port's main path), times
-each entry at the main path's shapes, and checks every byte that comes out.
+Builds the hand-written kernels from ``tpudfs_torch/gpu/csrc`` with nvcc
+(and the block I/O library from ``native/`` with g++), holds each kernel
+entry (per-chunk CRC32C, fused whole-block CRC32C, GF(2^8) matrix product)
+against its plain PyTorch twin on the card, drives the verified read into
+device memory at real size (the port's main path), times each entry at the
+main path's shapes, and checks every byte that comes out.
 
 Output (stdout): the card's ``nvidia-smi`` name and power limit, one JSON
 line per phase (``device``, ``build``, ``kernels_vs_plain``, ``read_path``,
-``ec_rebuild``, ``kernel_times``, ``kernels``), the kernel table
-``{"kernels": [...]}``, and last ``{"ok": true, "device": {...}}``. Any
-mismatch raises: the run exits non-zero and prints no result.
+``ec_rebuild``, ``combined``, ``sweep``, ``infeed``, ``kernel_times``,
+``kernels``), the kernel table ``{"kernels": [...]}``, and last
+``{"ok": true, "device": {...}}``. Any mismatch raises: the run exits
+non-zero and prints no result.
 
 The read path: three replica stores laid out under ``build/`` in the
 chunkserver's on-disk format (3x replication at rest) holding a 1 GiB file
@@ -23,6 +25,20 @@ shards 0, 2 and 7 missing. Everything is read through
 ``HbmReader(LocalClient(...))`` with ``verify="lazy"`` and settled with one
 ``confirm`` (twice: the first pass pays first-use costs, the second is
 reported); a flipped byte in one replica must be flagged and recovered.
+The same stores are then read by the batched paths, each with the launch
+counts reset just before it and read just after:
+
+- ``combined``: ``HbmReader(batch_reads=4)`` (the read combiner: one native
+  pread into a pooled pinned buffer, one copy and one fused CRC launch per
+  round of 4 blocks), two passes of the 1 GiB file (the second in reverse
+  order, so every recycled buffer is refilled with other blocks' bytes),
+  the first pass's blocks held until both are checked, and the tamper
+  check through the combiner;
+- ``sweep``: the native sweep pump over the 1 GiB and the tail file, twice,
+  then once with a flipped byte in one replica (that slot alone falls back
+  and is recovered);
+- ``infeed``: ``DfsInfeed(...).as_sync_iterator()`` over both files.
+
 Data is made from ``--seed`` with numpy.
 """
 
@@ -44,6 +60,7 @@ import torch
 
 from tpudfs_torch.client.local import DfsError, LocalClient
 from tpudfs_torch.chunkserver.blockstore import BlockStore
+from tpudfs_torch.common import native
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c_chunks, crc32c_fold
 from tpudfs_torch.common.erasure import encode
 from tpudfs_torch.gpu import host_to_device, u32_to_i64
@@ -58,6 +75,7 @@ from tpudfs_torch.gpu.crc32c_cuda import (
     word_contrib_table,
 )
 from tpudfs_torch.gpu.hbm_reader import HbmReader, device_array_to_bytes
+from tpudfs_torch.gpu.infeed import DfsInfeed
 from tpudfs_torch.gpu.rs_cuda import (
     coef_bits,
     decode_matrix,
@@ -70,6 +88,8 @@ from tpudfs_torch.gpu.rs_cuda import (
 
 REPO = Path(__file__).resolve().parent
 MiB = 1 << 20
+#: Blocks per round of the ``combined`` phase (``HbmReader(batch_reads=)``).
+COMBINED_BATCH = 4
 #: H100 SXM HBM3 rate (NVIDIA data sheet), the bound's denominator.
 HBM_BYTES_PER_S = 3.35e12
 NO_LIBRARY = ("no single PyTorch call computes CRC32C or a GF(2^8) "
@@ -92,6 +112,17 @@ KERNELS = {
         "replaces": "tpudfs/tpu/rs_pallas.py:112",
         "wrapper": gf_matmul_words,
     },
+}
+
+#: The kernels each main-path phase must launch on the card: the combiner
+#: verifies every round with the fused CRC; the sweep pump verifies on the
+#: host, so its kernels run in the per-block fallbacks (the unaligned tail
+#: block and the tampered slot); the infeed reads per block, eagerly.
+PATH_KERNELS = {
+    "read_path": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
+    "combined": ("crc32c_blocks",),
+    "sweep": ("crc32c_chunks", "crc32c_blocks"),
+    "infeed": ("crc32c_chunks", "crc32c_blocks"),
 }
 
 
@@ -228,8 +259,10 @@ async def _pass(reader: HbmReader, sources, device) -> dict:
 async def _host_breakdown(client: LocalClient, metas, device) -> dict:
     """The read window's host steps alone, at the same concurrency: the
     pread of every block of the big file into fresh grids, then their
-    pageable host->device copies; and, on a card, the copy rate from one
-    pinned buffer (what a pinned staging ring would reach)."""
+    pageable host->device copies; on a card, the copy rate from one pinned
+    buffer; and the native engine's batched pread of the same blocks in
+    rounds of 4 into one reused buffer (pinned on a card), without and with
+    its fused CRC: the combiner's fill and the sweep producer's."""
     blocks = metas["/smoke/big"]["blocks"]
     nbytes = sum(b["size"] for b in blocks)
     t0 = time.perf_counter()
@@ -254,6 +287,18 @@ async def _host_breakdown(client: LocalClient, metas, device) -> dict:
             dst.copy_(pinned, non_blocking=True)
         sync(device)
         out["h2d_pinned_gbps"] = nbytes / (time.perf_counter() - t0) / 1e9
+    paths = [str(client._local_stores[b["locations"][0]][0]
+                 .block_path(b["block_id"])) for b in blocks]
+    stride = blocks[0]["size"]
+    buf = torch.empty(COMBINED_BATCH * stride, dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    for key, with_crc in (("native_pread_gbps", False),
+                          ("native_pread_crc_gbps", True)):
+        t0 = time.perf_counter()
+        for i in range(0, len(paths), COMBINED_BATCH):
+            native.blocks_read(paths[i : i + COMBINED_BATCH], stride,
+                               buf.data_ptr(), with_crc=with_crc)
+        out[key] = nbytes / (time.perf_counter() - t0) / 1e9
     return out
 
 
@@ -308,31 +353,39 @@ async def _ec_rebuild(client: LocalClient, metas, device) -> dict:
     }
 
 
-async def _tamper(reader: HbmReader, client: LocalClient, metas, sources,
-                  device) -> dict:
-    """Flip one byte in the first replica of one block: confirm must flag it
-    (raise without retry), and with retry recover it from another replica."""
-    blocks = metas["/smoke/big"]["blocks"]
-    i = len(blocks) // 2
-    block = blocks[i]
+def _flip_first_replica(client: LocalClient, block: dict) -> None:
+    """Flip one byte of the block's first replica (a second call undoes it)."""
     store = client._local_stores[block["locations"][0]][0]
-    p = store.block_path(block["block_id"])
-    with open(p, "r+b") as f:
+    with open(store.block_path(block["block_id"]), "r+b") as f:
         f.seek(12345)
         byte = f.read(1)
         f.seek(12345)
         f.write(bytes([byte[0] ^ 0x40]))
-    db = await reader.read_block_to_device(block, device, verify="lazy")
+
+
+async def _tamper(reader: HbmReader, client: LocalClient, metas, sources,
+                  device) -> dict:
+    """Flip one byte in the first replica of one block: confirm must flag it
+    (raise without retry), and with retry recover it from another replica.
+    The byte is flipped back after."""
+    blocks = metas["/smoke/big"]["blocks"]
+    i = len(blocks) // 2
+    block = blocks[i]
+    _flip_first_replica(client, block)
     try:
-        await reader.confirm([db], retry=False)
-    except DfsError as e:
-        if block["block_id"] not in str(e):
-            raise
-    else:
-        raise AssertionError("confirm did not flag the tampered replica")
-    before = reader.rereads
-    db = await reader.read_block_to_device(block, device, verify="lazy")
-    await reader.confirm([db])
+        db = await reader.read_block_to_device(block, device, verify="lazy")
+        try:
+            await reader.confirm([db], retry=False)
+        except DfsError as e:
+            if block["block_id"] not in str(e):
+                raise
+        else:
+            raise AssertionError("confirm did not flag the tampered replica")
+        before = reader.rereads
+        db = await reader.read_block_to_device(block, device, verify="lazy")
+        await reader.confirm([db])
+    finally:
+        _flip_first_replica(client, block)
     if reader.rereads != before + 1 or not db.verified:
         raise AssertionError("tampered block was not recovered")
     size = block["size"]
@@ -340,6 +393,148 @@ async def _tamper(reader: HbmReader, client: LocalClient, metas, sources,
     if device_array_to_bytes(db.array, db.size) != want:
         raise AssertionError("recovered block bytes differ")
     return {"block": block["block_id"], "flagged": True, "recovered": True}
+
+
+# ------------------------------------------------- phases: batched paths
+
+
+async def _combined(client: LocalClient, metas, sources, device,
+                    batch: int = COMBINED_BATCH) -> dict:
+    """The read combiner: two passes of the big file (the second through
+    ``read_meta_blocks_fast`` in reverse block order), the first pass's
+    blocks held until both passes are checked byte for byte; then the
+    tamper check through the combiner."""
+    meta = metas["/smoke/big"]
+    nblocks = len(meta["blocks"])
+    cpb = meta["blocks"][0]["size"] // CHECKSUM_CHUNK_SIZE
+    reader = HbmReader(client, [device], batch_reads=batch)
+    t0 = time.perf_counter()
+    reader.warm_batches(cpb)
+    warm_s = time.perf_counter() - t0
+    comb = reader._combiner(device)
+    passes, held = [], []
+    for reverse in (False, True):
+        rounds, blocks0 = comb.rounds, comb.blocks
+        launches0 = crc32c_blocks_device.launches
+        stage0 = dict(comb.stage_s)
+        sync(device)
+        t0 = time.perf_counter()
+        if reverse:
+            got = await reader.read_meta_blocks_fast(
+                {**meta, "blocks": meta["blocks"][::-1]}, device)
+        else:
+            got = await reader.read_file_to_device_blocks("/smoke/big",
+                                                          verify="lazy")
+        sync(device)  # the timed window holds no device->host copy
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        await reader.confirm(got)
+        confirm_s = time.perf_counter() - t0
+        p = {"read_s": read_s, "gbps": sum(b.size for b in got) / read_s / 1e9,
+             "confirm_s": confirm_s, "rounds": comb.rounds - rounds,
+             "blocks": comb.blocks - blocks0,
+             "crc32c_blocks_launches": crc32c_blocks_device.launches - launches0,
+             "stage_s": _delta(comb.stage_s, stage0)}
+        want_launches = p["rounds"] if device.type == "cuda" else 0
+        # Rounds are powers of two of at most `batch` blocks.
+        want_rounds = nblocks // batch + bin(nblocks % batch).count("1")
+        if p["blocks"] != nblocks or p["rounds"] != want_rounds \
+                or p["crc32c_blocks_launches"] != want_launches:
+            raise AssertionError(f"combined pass did not fuse as expected: {p}")
+        if not all(b.verified for b in got) or reader.rereads:
+            raise AssertionError("combined pass did not verify every block")
+        passes.append(p)
+        held.append(got[::-1] if reverse else got)
+    for got in held:
+        _check_bytes(got, sources["/smoke/big"], "/smoke/big")
+    tamper = await _tamper(reader, client, metas, sources, device)
+    pooled = [b for bufs in comb._buf_pool.values() for b in bufs]
+    if device.type == "cuda" and not all(b.is_pinned() for b in pooled):
+        raise AssertionError("a pooled round buffer is not pinned")
+    return {"phase": "combined", "device": str(device), "batch_reads": batch,
+            "host_verify": comb.host_verify, "warm_s": warm_s,
+            "read_bytes": sum(b["size"] for b in meta["blocks"]),
+            **passes[1], "first_pass": passes[0], "tamper": tamper,
+            "pooled_buffers": len(pooled)}
+
+
+async def _sweep(client: LocalClient, metas, sources, device,
+                 round_blocks: int = 4, ring: int = 3) -> dict:
+    """The native sweep pump over the big and the tail file, twice (the
+    unaligned tail block falls back to the per-block path), then once with
+    a flipped byte in one replica: that slot alone falls back and the
+    per-block path recovers it."""
+    paths = ["/smoke/big", "/smoke/tail"]
+    nbig = len(metas["/smoke/big"]["blocks"])
+    nbytes = sum(b["size"] for p in paths for b in metas[p]["blocks"])
+    reader = HbmReader(client, [device])
+
+    async def one_pass() -> tuple[float, int]:
+        before = reader.sweep_blocks
+        stage0 = dict(reader.sweep_stage_s)
+        sync(device)
+        t0 = time.perf_counter()
+        got = await reader.sweep_paths_to_device(
+            paths, round_blocks=round_blocks, ring=ring)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        if not all(b.verified for b in got):
+            raise AssertionError("sweep returned an unverified block")
+        _check_bytes(got[:nbig], sources["/smoke/big"], "/smoke/big")
+        _check_bytes(got[nbig:], sources["/smoke/tail"], "/smoke/tail")
+        stages.append(_delta(reader.sweep_stage_s, stage0))
+        return seconds, reader.sweep_blocks - before
+
+    passes, stages = [], []
+    for i in range(2):
+        seconds, served = await one_pass()
+        if served != nbig:
+            raise AssertionError(f"sweep pump served {served} of {nbig} blocks")
+        passes.append({"read_s": seconds, "gbps": nbytes / seconds / 1e9,
+                       "sweep_blocks": served, "stage_s": stages[i]})
+    block = metas["/smoke/big"]["blocks"][nbig // 2]
+    _flip_first_replica(client, block)
+    try:
+        rereads = reader.rereads
+        _, served = await one_pass()
+    finally:
+        _flip_first_replica(client, block)
+    if served != nbig - 1 or reader.rereads != rereads + 1:
+        raise AssertionError("the tampered slot did not fall back alone")
+    return {"phase": "sweep", "device": str(device),
+            "round_blocks": round_blocks, "ring": ring, "read_bytes": nbytes,
+            **passes[1], "first_pass": passes[0],
+            "tamper": {"block": block["block_id"], "fell_back": True,
+                       "recovered": True}}
+
+
+def _infeed(client: LocalClient, sources, device) -> dict:
+    """One pass of ``DfsInfeed`` (per-block reads, verified eagerly)."""
+    paths = ["/smoke/big", "/smoke/tail"]
+    seen = []
+    t0 = time.perf_counter()
+    for path, blocks in DfsInfeed(client, paths, [device]).as_sync_iterator():
+        if not all(b.verified for b in blocks):
+            raise AssertionError(f"infeed: {path} not verified")
+        _check_bytes(blocks, sources[path], path)
+        seen.append(path)
+    if seen != paths:
+        raise AssertionError(f"infeed yielded {seen}")
+    return {"phase": "infeed", "device": str(device), "files": len(seen),
+            "seconds": time.perf_counter() - t0}
+
+
+def _delta(now: dict, before: dict) -> dict:
+    return {k: now[k] - before[k] for k in now}
+
+
+def _counted(run) -> dict:
+    """Run one phase with the launch counts set to 0 just before it; the
+    phase's result gains its launches."""
+    reset_launches()
+    out = run()
+    out["launches"] = launches()
+    return out
 
 
 def read_path(device: torch.device, *, block_size: int = 64 * MiB,
@@ -369,6 +564,11 @@ def read_path(device: torch.device, *, block_size: int = 64 * MiB,
         counts = launches()
         host = asyncio.run(_host_breakdown(client, metas, device))
         ec_rebuild = asyncio.run(_ec_rebuild(client, metas, device))
+        combined = _counted(lambda: asyncio.run(
+            _combined(client, metas, sources, device)))
+        sweep = _counted(lambda: asyncio.run(
+            _sweep(client, metas, sources, device)))
+        infeed = _counted(lambda: _infeed(client, sources, device))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"phase": "read_path", "device": str(device), "seed": seed,
@@ -376,7 +576,8 @@ def read_path(device: torch.device, *, block_size: int = 64 * MiB,
             "tail_size": tail_size, "ec": list(ec), "ec_lost": list(lost),
             "replicas": 3, "setup_s": setup_s, **passes[-1],
             "first_pass": passes[0], "host": host, "tamper": tamper,
-            "launches": counts, "ec_rebuild": ec_rebuild}
+            "launches": counts, "ec_rebuild": ec_rebuild,
+            "combined": combined, "sweep": sweep, "infeed": infeed}
 
 
 # ---------------------------------------------------------- card phases
@@ -391,13 +592,26 @@ def _nvidia_smi() -> str:
 
 
 def _build() -> dict:
+    """nvcc for each kernel source and g++ for the block I/O library, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tpudfs_torch.gpu import kernels
 
+    def build_native() -> tuple[Path, float]:
+        t0 = time.perf_counter()
+        return native.build(), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    info = kernels.build()
+    with ThreadPoolExecutor(1) as pool:
+        blockio = pool.submit(build_native)
+        info = kernels.build()
+        so, gxx_s = blockio.result()
     for name in info:
         kernels.lib(name)
+    native.lib()
     return {"phase": "build", "seconds": time.perf_counter() - t0,
+            "blockio": {"so": str(so.relative_to(REPO)), "gxx_s": gxx_s},
             "kernels": {
                 name: {"so": str(Path(i["so"]).relative_to(REPO)),
                        "nvcc_s": i["seconds"],
@@ -433,7 +647,7 @@ def _kernels_vs_plain(device: torch.device, rng) -> dict:
         crc[str(c)] = err
     blocks = {}
     for cpb in (1, 257, 131072):
-        for nblocks in (1, 3, 16):
+        for nblocks in (1, 3, 4, 16):
             words = _device_words(rng, (nblocks * cpb, 128), device)
             err = _same(crc32c_blocks_device(words, nblocks),
                         crc32c_blocks_plain(words, nblocks, wcontrib,
@@ -492,9 +706,23 @@ def _kernel_times(device: torch.device, rng, counts: dict,
                        crc32c_blocks_plain(words, 1, wcontrib, inv_contrib(),
                                            fold))
     # Words, WCONTRIB, the operator rows the kernel reads (M^0..M^31 and
-    # one M^(32*2^q) per bit of the last tile index), one output word.
-    blocks_bytes = (c * 512 + 32 * 128 * 4
-                    + (32 + (-(-c // 32) - 1).bit_length()) * 32 * 4 + 4)
+    # one M^(32*2^q) per bit of the last tile index), one output word each.
+    def blocks_bytes(nblocks: int) -> int:
+        return (nblocks * c * 512 + 32 * 128 * 4
+                + (32 + (-(-c // 32) - 1).bit_length()) * 32 * 4 + 4 * nblocks)
+
+    # The combiner's round: COMBINED_BATCH blocks in one launch.
+    nb = COMBINED_BATCH
+    round_words = _device_words(rng, (nb * c, 128), device)
+    round_ms = _time_ms(lambda: crc32c_blocks_device(round_words, nb), device)
+    round_call = _time_ms(lambda: crc32c_blocks_device(round_words, nb),
+                          device, False)
+    round_plain = _time_ms(lambda: crc32c_blocks_plain(
+        round_words, nb, wcontrib, inv_contrib(), fold), device)
+    round_err = _same(crc32c_blocks_device(round_words, nb),
+                      crc32c_blocks_plain(round_words, nb, wcontrib,
+                                          inv_contrib(), fold))
+    del round_words
 
     slen = -(-block_size // 6)
     w = -(-slen // 128) * 128 // 4  # padded shard words (2,796,224 at 64 MiB)
@@ -525,7 +753,11 @@ def _kernel_times(device: torch.device, rng, counts: dict,
         "crc32c_blocks": {"chunks": c, "nblocks": 1,
                           "block_crc_ms": block_crc_ms,
                           "call_ms": block_crc_call, "plain_ms": blocks_plain,
-                          "bound_ms": bound(blocks_bytes)},
+                          "bound_ms": bound(blocks_bytes(1))},
+        f"crc32c_blocks_{nb}x": {"chunks": nb * c, "nblocks": nb,
+                                 "ms": round_ms, "call_ms": round_call,
+                                 "plain_ms": round_plain,
+                                 "bound_ms": bound(blocks_bytes(nb))},
         "gf256_decode_6_3": {"words": w, "ms": dec_ms, "call_ms": dec_call,
                              "plain_ms": dec_plain, "bound_ms": bound(dec_bytes)},
         "gf256_encode_6_3": {"words": w, "ms": enc_ms, "call_ms": enc_call,
@@ -539,7 +771,11 @@ def _kernel_times(device: torch.device, rng, counts: dict,
          "bound_ms": bound(crc_bytes)},
         {"name": "crc32c_blocks", "launches": counts["crc32c_blocks"],
          "max_abs_err": blocks_err, "ms": block_crc_ms,
-         "plain_ms": blocks_plain, "bound_ms": bound(blocks_bytes)},
+         "plain_ms": blocks_plain, "bound_ms": bound(blocks_bytes(1)),
+         # The combiner's shape (the row's own numbers are one block's).
+         f"at_{nb}_blocks": {"max_abs_err": round_err, "ms": round_ms,
+                             "plain_ms": round_plain,
+                             "bound_ms": bound(blocks_bytes(nb))}},
         {"name": "gf256_matmul", "launches": counts["gf256_matmul"],
          "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain,
          "bound_ms": bound(dec_bytes)},
@@ -570,14 +806,21 @@ def main(argv=None) -> int:
     emit(_kernels_vs_plain(device, rng))
     result = read_path(device, seed=args.seed)
     ec_rebuild = result.pop("ec_rebuild")
+    batched = [result.pop(name) for name in ("combined", "sweep", "infeed")]
     emit(result)
     emit(ec_rebuild)
-    counts = result["launches"]
-    if not all(counts.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {counts}")
+    for phase in batched:
+        emit(phase)
+    by_path = {"read_path": result["launches"],
+               **{p["phase"]: p["launches"] for p in batched}}
+    for path, counts in by_path.items():
+        never = [k for k in PATH_KERNELS[path] if not counts[k]]
+        if never:
+            raise AssertionError(f"{path}: kernels never launched: {never}")
+    counts = {name: sum(c[name] for c in by_path.values()) for name in KERNELS}
     phase, table = _kernel_times(device, rng, counts, result["block_size"])
     emit(phase)
-    emit({"phase": "kernels", "launches": counts})
+    emit({"phase": "kernels", "launches": counts, "by_path": by_path})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,13 +7,16 @@ runs on a card host that has no JAX:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import asyncio
+
 import numpy as np
 import pytest
 import torch
 
+from tpudfs_torch.client.local import DfsError, LocalClient
 from tpudfs_torch.gpu import host_to_device, u32_to_numpy
 from tpudfs_torch.gpu import crc32c_cuda, rs_cuda
-from tpudfs_torch.gpu.hbm_reader import device_array_to_bytes
+from tpudfs_torch.gpu.hbm_reader import HbmReader, device_array_to_bytes
 
 CPU = torch.device("cpu")
 
@@ -190,3 +193,84 @@ def test_device_array_to_bytes_round_trip(cuda_device):
     data = np.random.default_rng(9).integers(0, 256, 5000, dtype=np.uint8)
     words = host_to_device(crc32c_cuda.bytes_to_words(data), cuda_device)
     assert device_array_to_bytes(words, 5000) == data.tobytes()
+
+
+# ------------------------------------------------------- batched read paths
+
+
+def _layout(tmp_path, nblocks=6):
+    """Six 64 KiB blocks at 3x replication plus an unaligned tail file, in
+    the chunkserver's format (``chip_smoke.lay_out``)."""
+    import chip_smoke
+
+    stores, metas, sources = chip_smoke.lay_out(
+        tmp_path, np.random.default_rng(3), block_size=64 * 1024,
+        nblocks=nblocks, tail_size=20_003, ec=(6, 3), lost=(0, 2, 7))
+    return LocalClient(stores, metas), metas, sources
+
+
+def _bytes(blocks) -> bytes:
+    return b"".join(device_array_to_bytes(b.array, b.size) for b in blocks)
+
+
+def test_combiner_held_blocks_survive_pinned_recycling(cuda_device, tmp_path):
+    """Blocks of the first pass are held while three more passes (reverse
+    order, rounds of 2) refill the recycled pinned buffers with other
+    blocks' bytes; every pass verifies on the card and reads back exact."""
+    client, metas, sources = _layout(tmp_path)
+    meta = metas["/smoke/big"]
+    reader = HbmReader(client, [cuda_device], batch_reads=2)
+
+    async def run():
+        held = await reader.read_file_to_device_blocks("/smoke/big",
+                                                       verify="lazy")
+        await reader.confirm(held)
+        for _ in range(3):
+            again = await reader.read_meta_blocks_fast(
+                {**meta, "blocks": meta["blocks"][::-1]}, cuda_device)
+            await reader.confirm(again)
+        return held, again[::-1]
+
+    held, again = asyncio.run(run())
+    comb = reader._combiner(cuda_device)
+    assert not comb.host_verify and comb.blocks == 24 and comb.rounds == 12
+    pooled = [b for bufs in comb._buf_pool.values() for b in bufs]
+    assert pooled and all(b.is_pinned() for b in pooled)
+    assert all(b.verified for b in held + again) and reader.rereads == 0
+    assert all(b.array.device == cuda_device for b in held)
+    data = sources["/smoke/big"].tobytes()
+    assert _bytes(held) == data and _bytes(again) == data
+
+
+def test_combiner_device_verdicts_match_cpu(cuda_device, tmp_path):
+    """With one replica tampered, the card's fused CRC vectors and verdicts
+    equal the CPU device's (plain twin, also verifying on the device)."""
+    import chip_smoke
+
+    client, metas, sources = _layout(tmp_path)
+    chip_smoke._flip_first_replica(client, metas["/smoke/big"]["blocks"][1])
+
+    async def verdicts(device):
+        reader = HbmReader(client, [device], batch_reads=4)
+        reader._combiner(device).host_verify = False
+        blocks = await reader.read_file_to_device_blocks("/smoke/big",
+                                                         verify="lazy")
+        with pytest.raises(DfsError, match="blk_smoke_big_1"):
+            await reader.confirm(blocks, retry=False)
+        return ([b.verified for b in blocks],
+                [int(b.batch.resolved[b.batch_index]) for b in blocks])
+
+    on_card = asyncio.run(verdicts(cuda_device))
+    assert on_card == asyncio.run(verdicts(CPU))
+    assert on_card[0] == [True, False, True, True, True, True]
+
+
+def test_sweep_on_card_bit_exact(cuda_device, tmp_path):
+    client, metas, sources = _layout(tmp_path)
+    reader = HbmReader(client, [cuda_device])
+    got = asyncio.run(reader.sweep_paths_to_device(
+        ["/smoke/big", "/smoke/tail"], round_blocks=2, ring=2))
+    assert reader.sweep_blocks == 6  # the unaligned tail falls back
+    assert all(b.verified and b.array.device == cuda_device for b in got)
+    assert _bytes(got[:6]) == sources["/smoke/big"].tobytes()
+    assert _bytes(got[6:]) == sources["/smoke/tail"].tobytes()

@@ -1,10 +1,12 @@
 """The port's slice as a whole, on the CPU at a small size: ``chip_smoke.py``'s
 read path (replicated, tail and degraded RS(6,3) blocks, one confirm, a
-tampered replica flagged and recovered), the rule that the port and the
-smoke script import neither jax nor ``tpudfs``, and the script's refusal
-to run without a card."""
+tampered replica flagged and recovered) and its batched phases (the read
+combiner, the native sweep pump, the infeed), the rule that the port and
+the smoke script import neither jax nor ``tpudfs`` and load no library the
+JAX package built, and the script's refusal to run without a card."""
 
 import ast
+import asyncio
 import os
 import shutil
 import subprocess
@@ -17,6 +19,8 @@ import torch
 import chip_smoke
 from tpudfs_torch.client.local import LocalClient
 from tpudfs_torch.gpu.hbm_reader import HbmReader
+from tpudfs_torch.gpu.infeed import DfsInfeed
+from tpudfs_torch.gpu.read_combiner import ReadCombiner
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -34,6 +38,20 @@ def test_read_path_small_on_cpu(tmp_path):
     # The CPU path runs the plain twins: no kernel launch is counted.
     assert r["launches"] == {"crc32c_chunks": 0, "crc32c_blocks": 0,
                              "gf256_matmul": 0}
+    # The batched phases on the same stores: one round of 4 per pass (the
+    # CPU device verifies inside the native pread), the tail block outside
+    # the sweep pump, every tamper check recovered, no launch counted.
+    comb = r["combined"]
+    assert comb["host_verify"] is True
+    assert (comb["rounds"], comb["blocks"]) == (1, 4)
+    assert (comb["first_pass"]["rounds"], comb["first_pass"]["blocks"]) == (1, 4)
+    assert comb["tamper"]["recovered"] and comb["pooled_buffers"] >= 1
+    assert r["sweep"]["sweep_blocks"] == 4
+    assert r["sweep"]["read_bytes"] == 4 * 64 * 1024 + 20_003
+    assert r["sweep"]["tamper"]["recovered"]
+    assert r["infeed"]["files"] == 2
+    for phase in ("combined", "sweep", "infeed"):
+        assert r[phase]["launches"] == r["launches"]
     assert list(tmp_path.iterdir()) == []  # the layout is removed
 
 
@@ -64,7 +82,13 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "tpudfs" or m.startswith("tpudfs."))
 assert not bad, bad
-assert "tpudfs_torch.gpu.hbm_reader" in sys.modules
+for m in ("hbm_reader", "read_combiner", "infeed"):
+    assert "tpudfs_torch.gpu." + m in sys.modules, m
+assert "tpudfs_torch.common.native" in sys.modules
+# The block I/O engine is the port's own build, not the JAX package's.
+maps = Path("/proc/self/maps").read_text()
+assert "build/tpudfs_torch/libtpudfs_blockio-" in maps
+assert "libtpudfs_native" not in maps
 print("clean")
 """
     env = {**os.environ, "PYTHONPATH": str(REPO)}
@@ -86,7 +110,9 @@ def _imports(path: Path) -> set[str]:
 
 def test_port_sources_name_no_jax_or_tpudfs_import():
     files = sorted((REPO / "tpudfs_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 12
+    assert len(files) >= 15
+    for name in ("common/native.py", "gpu/read_combiner.py", "gpu/infeed.py"):
+        assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):
             root = name.split(".")[0]
@@ -113,7 +139,18 @@ def test_entry_points_default_to_cuda(tmp_path):
     client = LocalClient({}, {})
     if torch.cuda.is_available():
         assert HbmReader(client).devices[0].type == "cuda"
+        assert ReadCombiner(client).device.type == "cuda"
+        assert DfsInfeed(client, []).reader.devices[0].type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             HbmReader(client)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ReadCombiner(client)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DfsInfeed(client, ["/f"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            asyncio.run(HbmReader(client, [CPU]).sweep_metas_to_device(
+                [], torch.device("cuda")))
     assert HbmReader(client, [CPU]).devices == [CPU]
+    assert ReadCombiner(client, CPU).device == CPU
+    assert DfsInfeed(client, [], [CPU]).reader.devices == [CPU]

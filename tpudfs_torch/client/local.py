@@ -32,11 +32,17 @@ class ChecksumMismatchError(DfsError):
     catch this type to decide whether a verified-path retry is worthwhile."""
 
 
+def is_error_named(exc: BaseException, name: str) -> bool:
+    """True when ``exc``'s class or one of its bases is called ``name``: the
+    reference client raises its own error classes (``DfsError``,
+    ``RpcError``), which the port must not import."""
+    return any(c.__name__ == name for c in type(exc).__mro__)
+
+
 def is_dfs_error(exc: BaseException) -> bool:
     """True for this module's DfsError and for any client's error class of
-    that name (the reference client raises its own ``DfsError``; the port
-    must not import it)."""
-    return any(c.__name__ == "DfsError" for c in type(exc).__mro__)
+    that name."""
+    return is_error_named(exc, "DfsError")
 
 
 class LocalClient:

@@ -1,30 +1,39 @@
 """DFS → GPU memory reader: blocks land as device tensors, verified on the
-device — port of ``tpudfs/tpu/hbm_reader.py`` (the per-block path).
+device — port of ``tpudfs/tpu/hbm_reader.py``.
 
-Each block's bytes go from the fetch buffer (a zero-padded chunk grid the
-client reads straight into) to its target device in one copy. The
-whole-block CRC32C recorded at CompleteFile is computed on the device by
-one launch of the fused kernel (``crc32c.cu``: the per-512-byte-chunk CRCs
-and their GF(2) combine-fold), with no host readback. Under ``verify="lazy"``
-every block's verdict stays on the device until :meth:`HbmReader.confirm`
-settles them all with one device→host copy. A degraded erasure-coded block
-is rebuilt on the device with kernel 2 (``gf256.cu``).
+Per-block path: each block's bytes go from the fetch buffer (a zero-padded
+chunk grid the client reads straight into) to its target device in one
+copy. The whole-block CRC32C recorded at CompleteFile is computed on the
+device by one launch of the fused kernel (``crc32c.cu``: the
+per-512-byte-chunk CRCs and their GF(2) combine-fold), with no host
+readback. Under ``verify="lazy"`` every block's verdict stays on the device
+until :meth:`HbmReader.confirm` settles them all with one device→host copy.
+A degraded erasure-coded block is rebuilt on the device with kernel 2
+(``gf256.cu``).
+
+Batched paths: with ``batch_reads > 0`` lazily verified blocks go through
+the read combiner (``read_combiner.py``: one native pread, one copy from a
+pinned buffer and one fused CRC launch per round of up to ``batch_reads``
+blocks), and :meth:`HbmReader.sweep_metas_to_device` hands whole file sets
+to the native sweep pump (a producer thread filling a pinned ring ahead of
+the consumer, verifying on the host).
 
 The client is duck-typed: ``tpudfs_torch.client.local.LocalClient`` (the
 colocated short-circuit read) or the reference ``tpudfs.client.Client``.
-Not in this port yet: the fused-round combiner (``read_combiner.py``; every
-block takes the per-block path) and the native sweep pump.
 """
 
 from __future__ import annotations
 
 import asyncio
+import ctypes
 import logging
+import time
 
 import numpy as np
 import torch
 
 from tpudfs_torch.client.local import ChecksumMismatchError, DfsError, is_dfs_error
+from tpudfs_torch.common import native
 from tpudfs_torch.common.checksum import (
     CHECKSUM_CHUNK_SIZE,
     crc32c,
@@ -38,23 +47,32 @@ from tpudfs_torch.gpu.crc32c_cuda import (
     bytes_to_words,
     crc32c_chunks_device,
 )
+from tpudfs_torch.gpu.read_combiner import (
+    DeviceBatch,
+    ReadCombiner,
+    wait_events,
+)
 from tpudfs_torch.gpu.rs_cuda import pad_shard_len, rs_decode_device
 
 logger = logging.getLogger(__name__)
 
 
 class DeviceBlock:
-    """One block's words on one device: a (chunks, 128) uint32 tensor.
-    ``pending_crc`` marks lazy verification: the 0-d on-device CRC fold is
-    resolved against ``expected_crc`` by :meth:`HbmReader.confirm`, on the
-    host, with one device→host copy per confirm call."""
+    """One block's words on one device: its own (chunks, 128) uint32
+    tensor, or a slice on demand of a fused :class:`DeviceBatch` (the
+    batched paths). ``pending_crc`` / ``batch_pending`` mark lazy
+    verification: the 0-d (or batch-vector) on-device CRC fold is resolved
+    against ``expected_crc`` by :meth:`HbmReader.confirm`, on the host,
+    with one device→host copy per confirm call."""
 
-    def __init__(self, block_id: str, array: torch.Tensor, size: int,
+    def __init__(self, block_id: str, array: torch.Tensor | None, size: int,
                  verified: bool, *, pending_crc: torch.Tensor | None = None,
                  expected_crc: int | None = None, source: dict | None = None,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None,
+                 batch: DeviceBatch | None = None, batch_index: int = 0,
+                 batch_pending: bool = False):
         self.block_id = block_id
-        self.array = array
+        self._array = array
         self.size = size  # unpadded byte length
         self.verified = verified
         self.pending_crc = pending_crc
@@ -63,16 +81,89 @@ class DeviceBlock:
         #: verify can be retried through the host-verified fetch path.
         self.source = source
         self.device = device
+        #: fused-round fields: the DeviceBatch this block rides in, its
+        #: index there, and whether its verdict is still unresolved in the
+        #: batch's (n,) CRC vector.
+        self.batch = batch
+        self.batch_index = batch_index
+        self.batch_pending = batch_pending
+
+    @property
+    def array(self) -> torch.Tensor:
+        """(chunks, 128) uint32 words; a batched block slices its round on
+        first use."""
+        if self._array is None and self.batch is not None:
+            self._array = self.batch.block_words(self.batch_index)
+        return self._array
+
+    @array.setter
+    def array(self, value: torch.Tensor) -> None:
+        self._array = value
+        self.batch = None
+
+    @property
+    def sync_arrays(self) -> list:
+        """Device tensors a completion wait must cover for this block,
+        without slicing a fused batch."""
+        if self.batch is not None and self._array is None:
+            out = [self.batch.words]
+            if self.batch.crcs is not None:
+                out.append(self.batch.crcs)
+            return out
+        out = [self._array]
+        if self.pending_crc is not None:
+            out.append(self.pending_crc)
+        return out
 
 
 class HbmReader:
-    def __init__(self, client, devices: list | None = None):
+    def __init__(self, client, devices: list | None = None, *,
+                 batch_reads: int = 0):
         self.client = client
         self.devices = ([resolve_device(d) for d in devices]
                         if devices is not None else [resolve_device()])
         #: Blocks re-read through the host-verified path after their device
         #: check failed (eagerly or at confirm).
         self.rereads = 0
+        #: >0 enables the fused read path (one ReadCombiner per device,
+        #: max_batch=batch_reads) for lazily verified reads; 0 keeps every
+        #: block on the per-block path.
+        self.batch_reads = batch_reads
+        self._combiners: dict[torch.device, ReadCombiner] = {}
+        #: blocks served by the native sweep pump.
+        self.sweep_blocks = 0
+        #: Wall seconds of the sweep's consumer, summed over rounds and
+        #: sweeps: waiting for the producer to fill a round
+        #: (``producer_wait``), enqueueing its copy (``copy``), waiting for
+        #: a recycled slot's copy to complete (``slot_wait``), and the
+        #: per-block fallbacks (``fallback``).
+        self.sweep_stage_s = dict.fromkeys(
+            ("producer_wait", "copy", "slot_wait", "fallback"), 0.0)
+
+    def _combiner(self, device) -> ReadCombiner:
+        device = resolve_device(device)
+        c = self._combiners.get(device)
+        if c is None:
+            c = ReadCombiner(self.client, device, max_batch=self.batch_reads)
+            self._combiners[device] = c
+        return c
+
+    async def _try_batched(self, block: dict, device,
+                           verify: bool | str) -> DeviceBlock | None:
+        """Fused-round read when enabled and the block qualifies (lazy
+        verify, chunk-aligned; a colocated replica or a remote peer's
+        batched ReadBlocks frame). None -> per-block path."""
+        if not self.batch_reads or verify != "lazy":
+            return None
+        return await self._combiner(device).read(block)
+
+    def warm_batches(self, cpb: int) -> None:
+        """Allocate every round size's pooled buffer and load the CRC
+        kernel's library and tables on every device (nothing launched), so
+        the first timed round pays neither."""
+        if self.batch_reads:
+            for device in self.devices:
+                self._combiner(device).warm(cpb)
 
     # ------------------------------------------------------------ per block
 
@@ -85,6 +176,10 @@ class HbmReader:
 
         ``safe_local``: force the host-verified short-circuit path (used by
         the corruption retry; normally the on-device check subsumes it)."""
+        if not safe_local:
+            db = await self._try_batched(block, device, verify)
+            if db is not None:
+                return db
         try:
             db = await self._read_block_inner(block, device, verify,
                                               safe_local)
@@ -242,28 +337,50 @@ class HbmReader:
     async def confirm(self, blocks: list[DeviceBlock], *,
                       retry: bool = True) -> None:
         """Resolve every lazy verification with ONE device→host copy: the
-        pending 0-d CRCs are gathered on the first device, stacked, and
-        copied to the host together, then compared there.
+        pending 0-d CRCs of single blocks and the (n,) CRC vectors of fused
+        rounds are gathered on the first device, concatenated, and copied
+        to the host together, then compared there. A round resolved by an
+        earlier call keeps its resolution (a second confirm copies nothing).
 
         A failed block is retried once through the host-verified fetch path
         (``retry=False`` disables), where a corrupt local replica is
-        skipped for a healthy one. Raises DfsError naming each block that
-        could not be recovered; marks the rest verified."""
+        skipped for a healthy one; the re-reads run concurrently. Raises
+        DfsError naming each block that could not be recovered; marks the
+        rest verified."""
         singles = [b for b in blocks if b.pending_crc is not None]
-        if not singles:
+        batched = [b for b in blocks if b.batch_pending and b.batch is not None]
+        if not singles and not batched:
             return
+        # Unresolved batches, deduped by identity, in first-seen order.
+        groups: list[DeviceBatch] = []
+        for b in batched:
+            if b.batch.resolved is None and \
+                    not any(g is b.batch for g in groups):
+                groups.append(b.batch)
         home = self.devices[0]
+        parts = [b.pending_crc.view(torch.int32).reshape(1).to(home)
+                 for b in singles]
+        parts += [g.crcs.view(torch.int32).to(home) for g in groups]
 
         def fetch() -> np.ndarray:
-            stacked = torch.stack([b.pending_crc.view(torch.int32).to(home)
-                                   for b in singles])
-            return stacked.cpu().numpy().view(np.uint32)
+            return torch.cat(parts).cpu().numpy().view(np.uint32)
 
-        got = await asyncio.to_thread(fetch)
+        got = await asyncio.to_thread(fetch) if parts \
+            else np.empty(0, dtype=np.uint32)
         bad = []
         for i, b in enumerate(singles):
             b.pending_crc = None
             b.verified = int(got[i]) == b.expected_crc
+            if not b.verified:
+                bad.append(b)
+        off = len(singles)
+        for g in groups:
+            g.resolved = got[off : off + g.nblocks]
+            g.crcs = None
+            off += g.nblocks
+        for b in batched:
+            b.batch_pending = False
+            b.verified = int(b.batch.resolved[b.batch_index]) == b.expected_crc
             if not b.verified:
                 bad.append(b)
 
@@ -322,6 +439,9 @@ class HbmReader:
         device = device or self.devices[0]
 
         async def fast_or_slow(block: dict) -> DeviceBlock:
+            db = await self._try_batched(block, device, verify)
+            if db is not None:
+                return db
             store = None
             if self.client.local_reads and not block.get("ec_data_shards"):
                 for addr in block.get("locations") or []:
@@ -356,6 +476,175 @@ class HbmReader:
         return list(await asyncio.gather(
             *(fast_or_slow(b) for b in meta["blocks"])
         ))
+
+    # ---------------------------------------------------- native sweep pump
+
+    async def sweep_metas_to_device(self, metas: list[dict], device=None, *,
+                                    round_blocks: int = 16,
+                                    ring: int = 3) -> list[DeviceBlock]:
+        """Steady-state sweep infeed, native end to end: every eligible
+        block of every file is handed to the native sweep pump
+        (``native/blockio.cc`` ``tpudfs_sweep_*``) once. Its producer
+        thread runs the fused pread + CRC into a ring of round buffers ahead
+        of this coroutine, whose per-round work is one wait (usually
+        already satisfied), one vectorized verify, one copy to the device
+        and one release.
+
+        Blocks that do not qualify (EC, no colocated replica, unaligned
+        tail, CRC mismatch, short read) fall back to the per-block path
+        with its recovery. Returns DeviceBlocks in (file, block) order,
+        verified on the host (nothing pending for ``confirm``).
+
+        The ring is pinned host memory on a card (PyTorch's caching host
+        allocator hands a finished sweep's buffers to the next one), and a
+        slot is released to the producer only after an event recorded
+        behind its round's copy has completed. On the CPU device each round
+        is cloned out of the ring."""
+        device = resolve_device(device or self.devices[0])
+        lib = native.lib()
+
+        # ---- eligibility + local path resolution (meta order preserved)
+        entries: list = []   # (slot_index | None, block) per (file, block)
+        paths: list[str] = []
+        expected_sizes: list[int] = []
+        expected_crcs: list[int] = []
+        stores: dict[str, object] = {}  # addr -> store|None, sweep-local
+        for meta in metas:
+            for block in meta["blocks"]:
+                size = int(block.get("size") or 0)
+                store = None
+                if (self.client.local_reads
+                        and not block.get("ec_data_shards")
+                        and block.get("checksum_crc32c")
+                        and size > 0 and size % CHECKSUM_CHUNK_SIZE == 0):
+                    for addr in block.get("locations") or []:
+                        if not addr:
+                            continue
+                        if addr in stores:
+                            s = stores[addr]
+                        else:
+                            s = await self.client._local_store(addr)
+                            stores[addr] = s
+                        if s is not None:
+                            store = s
+                            break
+                if store is None:
+                    entries.append((None, block))
+                    continue
+                try:
+                    # No-probe hot-tier path: a cold-tier or missing block
+                    # fails its pread and takes the per-block fallback.
+                    bpath = store.hot_path_str(block["block_id"])
+                except ValueError:
+                    entries.append((None, block))
+                    continue
+                entries.append((len(paths), block))
+                paths.append(bpath)
+                expected_sizes.append(size)
+                expected_crcs.append(int(block["checksum_crc32c"]))
+
+        fallback_idx = [i for i, (slot, _b) in enumerate(entries)
+                        if slot is None]
+        results: list = [None] * len(entries)
+        n = len(paths)
+        if n:
+            stride = max(expected_sizes)
+            spb = stride // CHECKSUM_CHUNK_SIZE  # slot rows
+            on_card = device.type == "cuda"
+            bufs = [torch.empty(round_blocks * stride, dtype=torch.uint8,
+                                pin_memory=on_card) for _ in range(ring)]
+            buf_words = [b.view(torch.int32).view(-1, WORDS_PER_CHUNK)
+                         for b in bufs]
+            sizes = np.zeros(n, dtype=np.int64)
+            crcs = np.zeros(n, dtype=np.uint32)
+            cpaths = native.c_paths(paths)
+            cbufs = (ctypes.c_void_p * ring)(*(b.data_ptr() for b in bufs))
+            exp_sizes = np.asarray(expected_sizes, dtype=np.int64)
+            exp_crcs = np.asarray(expected_crcs, dtype=np.uint32)
+            slot_entry = [i for i, (slot, _b) in enumerate(entries)
+                          if slot is not None]
+            handle = lib.tpudfs_sweep_start(
+                cpaths, n, stride, round_blocks, cbufs, ring,
+                sizes.ctypes.data, crcs.ctypes.data)
+            nrounds = -(-n // round_blocks)
+            copied: list = [None] * nrounds  # copy-done event per round
+            try:
+                stage = self.sweep_stage_s
+                for r in range(nrounds):
+                    t0 = time.perf_counter()
+                    if r >= ring:
+                        # The recycled slot's copy must have COMPLETED
+                        # before the producer refills it.
+                        await asyncio.to_thread(wait_events,
+                                                [copied[r - ring]])
+                        lib.tpudfs_sweep_release(handle, r - ring)
+                    t1 = time.perf_counter()
+                    nblk = await asyncio.to_thread(
+                        lib.tpudfs_sweep_wait, handle, r)
+                    t2 = time.perf_counter()
+                    stage["slot_wait"] += t1 - t0
+                    stage["producer_wait"] += t2 - t1
+                    if nblk < 0:
+                        break
+                    lo = r * round_blocks
+                    hi = lo + nblk
+                    ok = (sizes[lo:hi] == exp_sizes[lo:hi]) \
+                        & (crcs[lo:hi] == exp_crcs[lo:hi])
+                    rows = buf_words[r % ring][: nblk * spb]
+                    if on_card:
+                        words = rows.to(device, non_blocking=True)
+                        copied[r] = torch.cuda.Event()
+                        copied[r].record(torch.cuda.current_stream(device))
+                    else:
+                        words = rows.clone()
+                    stage["copy"] += time.perf_counter() - t2
+                    batch = DeviceBatch(words=words.view(torch.uint32),
+                                        crcs=None, cpb=spb, nblocks=nblk)
+                    for j in range(nblk):
+                        slot = lo + j
+                        eidx = slot_entry[slot]
+                        _s, block = entries[eidx]
+                        if not ok[j]:
+                            fallback_idx.append(eidx)
+                            continue
+                        results[eidx] = DeviceBlock(
+                            block["block_id"], None,
+                            int(exp_sizes[slot]), True,
+                            expected_crc=int(exp_crcs[slot]),
+                            source=block, device=device,
+                            batch=batch, batch_index=j,
+                            batch_pending=False)
+                        self.sweep_blocks += 1
+            finally:
+                # Completion before stop: a copy may still be reading a
+                # ring buffer.
+                await asyncio.to_thread(wait_events, copied)
+                lib.tpudfs_sweep_stop(handle)
+
+        if fallback_idx:
+            async def fb(eidx: int):
+                _slot, block = entries[eidx]
+                results[eidx] = await self.read_block_to_device(
+                    block, device, verify=True)
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*(fb(i) for i in fallback_idx))
+            self.sweep_stage_s["fallback"] += time.perf_counter() - t0
+        return results
+
+    async def sweep_paths_to_device(self, paths: list[str], device=None, *,
+                                    round_blocks: int = 16,
+                                    ring: int = 3) -> list[DeviceBlock]:
+        """:meth:`sweep_metas_to_device` with the metadata fan-out in front
+        (nothing cached: metadata fetched in the sweep, then the native pump
+        drives the data plane)."""
+        metas = await asyncio.gather(
+            *(self.client.get_file_info(p) for p in paths))
+        missing = [p for p, m in zip(paths, metas) if m is None]
+        if missing:
+            raise DfsError(f"file not found: {missing[0]}")
+        return await self.sweep_metas_to_device(
+            metas, device, round_blocks=round_blocks, ring=ring)
 
     # ------------------------------------------------------------- per file
 
