@@ -12,8 +12,10 @@ main path's shapes, and checks every byte that comes out.
 
 Output (stdout): the card's ``nvidia-smi`` name and power limit, one JSON
 line per phase (``device``, ``build``, ``kernels_vs_plain``, ``read_path``,
-``ec_rebuild``, ``combined``, ``sweep``, ``infeed``, ``kernel_times``,
-``kernels``), the kernel table ``{"kernels": [...]}``, and last
+``ec_rebuild``, ``combined``, ``sweep``, ``infeed``, ``write``,
+``ec_collective``, ``kernel_times``, ``kernels``), the kernel table
+``{"kernels": [...]}`` (each row at the read path's shape, with the write
+side's shapes nested in it), and last
 ``{"ok": true, "device": {...}}``. Any mismatch raises: the run exits
 non-zero and prints no result.
 
@@ -38,6 +40,20 @@ counts reset just before it and read just after:
   then once with a flipped byte in one replica (that slot alone falls back
   and is recovered);
 - ``infeed``: ``DfsInfeed(...).as_sync_iterator()`` over both files.
+
+Then the write side, each phase with the launch counts reset just before
+it and read just after (ring positions go to distinct cards when there are
+enough of them, else all to ``cuda:0``; each phase prints its mapping):
+
+- ``write``: the collective write group (``IciWriteGroup``) at 3x
+  replication on a 3-position ring, members that persist into port block
+  stores on local disk; every position submits 4 blocks of 64 MiB at once
+  (one round of B=4), twice, then one tampered round (a poisoned expected
+  CRC) that must fail as a whole and persist nothing;
+- ``ec_collective``: RS(6,3) scatter and gather of one 64 MiB block per
+  position over a 9-position ring, the gather healthy and around position
+  4 with its rows overwritten; and ``replicated_write_step(ec=(6,3))`` on
+  the 3-ring against the host encoder.
 
 Data is made from ``--seed`` with numpy.
 """
@@ -66,6 +82,7 @@ from tpudfs_torch.common.erasure import encode
 from tpudfs_torch.gpu import host_to_device, u32_to_i64
 from tpudfs_torch.gpu.crc32c_cuda import (
     block_crc_device,
+    bytes_to_words,
     crc32c_blocks_device,
     crc32c_blocks_plain,
     crc32c_chunks_device,
@@ -75,6 +92,13 @@ from tpudfs_torch.gpu.crc32c_cuda import (
     word_contrib_table,
 )
 from tpudfs_torch.gpu.hbm_reader import HbmReader, device_array_to_bytes
+from tpudfs_torch.gpu.ici_replication import (
+    EcShardGather,
+    EcShardScatter,
+    decode_select_matrices,
+    make_mesh,
+    replicated_write_step,
+)
 from tpudfs_torch.gpu.infeed import DfsInfeed
 from tpudfs_torch.gpu.rs_cuda import (
     coef_bits,
@@ -85,6 +109,7 @@ from tpudfs_torch.gpu.rs_cuda import (
     pad_shard_len,
     rs_decode_device,
 )
+from tpudfs_torch.gpu.write_group import IciWriteGroup
 
 REPO = Path(__file__).resolve().parent
 MiB = 1 << 20
@@ -117,13 +142,22 @@ KERNELS = {
 #: The kernels each main-path phase must launch on the card: the combiner
 #: verifies every round with the fused CRC; the sweep pump verifies on the
 #: host, so its kernels run in the per-block fallbacks (the unaligned tail
-#: block and the tampered slot); the infeed reads per block, eagerly.
+#: block and the tampered slot); the infeed reads per block, eagerly; the
+#: write group verifies every position's replicas with one chunk-CRC
+#: launch; the EC collectives encode, CRC the sent and received shards, and
+#: decode with runtime matrices.
 PATH_KERNELS = {
     "read_path": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
     "combined": ("crc32c_blocks",),
     "sweep": ("crc32c_chunks", "crc32c_blocks"),
     "infeed": ("crc32c_chunks", "crc32c_blocks"),
+    "write": ("crc32c_chunks",),
+    "ec_collective": ("crc32c_chunks", "gf256_matmul"),
 }
+#: The write phase: 3x replication (BASELINE.json's HA layout) on a
+#: 3-position ring, 4 blocks a position a round.
+WRITE_RING = 3
+WRITE_BLOCKS = 4
 
 
 def emit(obj: dict) -> None:
@@ -139,9 +173,10 @@ def launches() -> dict[str, int]:
     return {name: k["wrapper"].launches for name, k in KERNELS.items()}
 
 
-def sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def sync(*devices: torch.device) -> None:
+    for device in set(devices):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -580,6 +615,264 @@ def read_path(device: torch.device, *, block_size: int = 64 * MiB,
             "combined": combined, "sweep": sweep, "infeed": infeed}
 
 
+# ------------------------------------------------------ phases: write side
+
+
+def ring_devices(device: torch.device, n: int) -> tuple[list, str]:
+    """n ring positions: distinct cards when ``device`` is a card and there
+    are at least n of them, else every position on ``device``."""
+    if device.type == "cuda" and torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], "distinct cards"
+    return [device] * n, f"all {n} positions on {device}"
+
+
+class StoreMember:
+    """A write-group member: an address and a port ``BlockStore`` on local
+    disk, persisting each replica with its per-chunk CRCs (the native CRC,
+    as a chunkserver's committer computes them)."""
+
+    def __init__(self, address: str, root: Path):
+        self.address = address
+        self.store = BlockStore(root)
+
+    async def persist_ici_replica(self, block_id, data, master_term,
+                                  master_shard) -> bool:
+        await asyncio.to_thread(lambda: self.store.write(
+            block_id, data, native.crc32c_chunks(data)))
+        return True
+
+
+def _read_back(members, datas: dict) -> int:
+    """Every member's store holds every block, ``read_verified`` (its
+    sidecar CRCs checked) to its bytes; returns the copies checked."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def check(job) -> None:
+        member, bid = job
+        if member.store.read_verified(bid) != datas[bid]:
+            raise AssertionError(f"{member.address}: {bid} bytes differ")
+
+    jobs = [(mb, bid) for mb in members for bid in datas]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(check, jobs))
+    return len(jobs)
+
+
+async def _write(devices, root: Path, rng, *, block_size: int,
+                 nblocks: int) -> dict:
+    n = len(devices)
+    members = [StoreMember(f"cs{i}:7000", root / f"w{i}") for i in range(n)]
+    group = IciWriteGroup(make_mesh(devices), [mb.address for mb in members],
+                          replication=n)
+    for i, mb in enumerate(members):
+        group.attach(mb, i)
+    cpb = -(-block_size // CHECKSUM_CHUNK_SIZE)
+    t0 = time.perf_counter()
+    group.warm(cpb, nblocks)
+    warm_s = time.perf_counter() - t0
+    reset_launches()
+
+    async def one_pass(tag: str) -> dict:
+        datas = {f"blk_{tag}_{p}_{j}": rng.bytes(block_size)
+                 for p in range(n) for j in range(nblocks)}
+        stage0, rounds0 = dict(group.stage_s), group.stats.rounds
+        sync(*devices)
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(
+            group.submit(int(bid.split("_")[2]), bid, d, 1, "smoke")
+            for bid, d in datas.items()))
+        sync(*devices)
+        seconds = time.perf_counter() - t0
+        if got != [n] * len(datas) or group.stats.last_acks != n:
+            raise AssertionError(f"write pass {tag}: replicas {got}, acks "
+                                 f"{group.stats.last_acks}")
+        nbytes = sum(map(len, datas.values()))
+        return {"bytes": nbytes, "seconds": seconds,
+                "gbps": nbytes / seconds / 1e9,
+                "rounds": group.stats.rounds - rounds0,
+                "acks": group.stats.last_acks,
+                "stage_s": _delta(group.stage_s, stage0),
+                "copies_read_back": _read_back(members, datas)}
+
+    try:
+        passes = [await one_pass("first"), await one_pass("steady")]
+        tamper = await _write_tamper(group, members, rng, block_size)
+    finally:
+        await group.stop()
+    host = await _write_host_parts(devices[0], members[0], rng, block_size,
+                                   n * nblocks)
+    return {"phase": "write", "devices": [str(d) for d in devices],
+            "replication": n, "block_size": block_size,
+            "blocks_per_position": nblocks, "warm_s": warm_s,
+            **passes[1], "first_pass": passes[0],
+            "blocks": group.stats.blocks,
+            "round_failures": group.stats.round_failures,
+            "persist_failures": group.stats.persist_failures,
+            "tamper": tamper, "host": host, "launches": launches()}
+
+
+async def _write_host_parts(device, member, rng, block_size: int,
+                            nblocks: int) -> dict:
+    """The host steps of one position's drain and persist, each alone at
+    that position's size (``nblocks`` blocks of R=3 replica groups): the
+    device->host copy into fresh pageable memory (what the group's drain
+    does), the same into one pinned buffer (on a card), the cut of the host
+    copy into one bytes object per block, and one block's persist (native
+    CRC + the store's durable write, fsync included)."""
+    nbytes = nblocks * block_size
+    src = torch.empty(nbytes // 4, dtype=torch.int32, device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    flat = src.cpu().numpy().view(np.uint8)
+    out = {"bytes": nbytes,
+           "d2h_pageable_gbps": nbytes / (time.perf_counter() - t0) / 1e9}
+    if device.type == "cuda":
+        pinned = torch.empty(nbytes // 4, dtype=torch.int32, pin_memory=True)
+        pinned.copy_(src)  # the first copy maps the buffer
+        t0 = time.perf_counter()
+        pinned.copy_(src)
+        out["d2h_pinned_gbps"] = nbytes / (time.perf_counter() - t0) / 1e9
+        del pinned
+    t0 = time.perf_counter()
+    cut = [flat[o : o + block_size].tobytes()
+           for o in range(0, nbytes, block_size)]
+    out["cut_gbps"] = nbytes / (time.perf_counter() - t0) / 1e9
+    del cut, src
+    data = rng.bytes(block_size)
+    t0 = time.perf_counter()
+    await member.persist_ici_replica("blk_persist_alone", data, 1, "smoke")
+    out["persist_one_block_s"] = time.perf_counter() - t0
+    return out
+
+
+async def _write_tamper(group, members, rng, block_size: int) -> dict:
+    """One round with position 1's first expected CRC poisoned: it must
+    fail as a whole (acks below the positions, one round failure, every
+    future raising the group's ``Error``) and persist nothing."""
+    n = len(members)
+    real = group.replicator.replicate
+
+    def poisoned(words, crcs):
+        crcs = [c.clone() for c in crcs]
+        crcs[1].view(torch.int32)[0] ^= 0x5A5A5A5A
+        return real(words, crcs)
+
+    failures0 = group.stats.round_failures
+    bids = [f"blk_tamper_{p}" for p in range(n)]
+    group.replicator.replicate = poisoned
+    try:
+        got = await asyncio.gather(
+            *(group.submit(p, bid, rng.bytes(block_size), 1, "smoke")
+              for p, bid in enumerate(bids)), return_exceptions=True)
+    finally:
+        group.replicator.replicate = real
+    stored = [bid for mb in members for bid in bids
+              if mb.store.block_path(bid).exists()]
+    if not all(isinstance(e, group.Error) for e in got)             or group.stats.round_failures != failures0 + 1             or group.stats.last_acks >= n or stored:
+        raise AssertionError(f"tampered round did not fail as a whole: {got}, "
+                             f"acks {group.stats.last_acks}, stored {stored}")
+    return {"acks": group.stats.last_acks, "round_failures": 1,
+            "futures_failed": len(got), "persisted": 0}
+
+
+def write_path(device: torch.device, *, block_size: int = 64 * MiB,
+               nblocks: int = WRITE_BLOCKS, seed: int = 0,
+               workdir: Path | None = None) -> dict:
+    """The ``write`` phase (see the module docstring); the stores live in a
+    temporary directory under ``workdir`` (default ``build/``), removed at
+    the end."""
+    devices, mapping = ring_devices(device, WRITE_RING)
+    root = Path(workdir) if workdir is not None else REPO / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_write_", dir=root))
+    try:
+        out = asyncio.run(_write(devices, tmp, np.random.default_rng(seed + 1),
+                                 block_size=block_size, nblocks=nblocks))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {**out, "mapping": mapping}
+
+
+def _data_matches(recon: torch.Tensor, words: torch.Tensor) -> bool:
+    """The first len(words) bytes of the (k, S, 128) data shards are the
+    source words, compared on their device."""
+    n = words.numel()
+    return torch.equal(recon.view(torch.int32).reshape(-1)[:n],
+                       words.view(torch.int32).reshape(-1))
+
+
+def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
+                  ec: tuple = (6, 3), seed: int = 0) -> dict:
+    """The ``ec_collective`` phase: RS(k,m) scatter and gather of one block
+    per position over a (k+m)-position ring (every position's data back
+    bit-exact, healthy and around position 4 with its rows garbage), then
+    ``replicated_write_step(ec=)`` on the 3-ring, its parity against the
+    host encoder. The first scatter and gather pay first-use costs; the
+    second of each is timed (host clock, ended by a synchronize)."""
+    k, m = ec
+    devices, mapping = ring_devices(device, k + m)
+    rng = np.random.default_rng(seed + 2)
+    mesh = make_mesh(devices)
+    cpb = block_size // CHECKSUM_CHUNK_SIZE
+    words = [_device_words(rng, (cpb, 128), d) for d in devices]
+    scatter, gather = EcShardScatter(mesh, k, m), EcShardGather(mesh, k, m)
+    gather.gather(scatter.scatter(words)[0])
+    sync(*devices)
+    reset_launches()
+    t0 = time.perf_counter()
+    shards, ok, acks = scatter.scatter(words)
+    acks = int(acks)
+    shards_s = shards[0].shape[1]  # chunks of one shard
+    sync(*devices)
+    scatter_s = time.perf_counter() - t0
+    if acks != k + m or not all(bool(o) for o in ok):
+        raise AssertionError(f"EC scatter verified on {acks}/{k + m}")
+    after_scatter = launches()
+    times = {}
+    for failed in (None, 4):
+        if failed is not None:
+            shards[failed].view(torch.int32).fill_(0x25A5A5A5)
+        sync(*devices)
+        t0 = time.perf_counter()
+        recon = gather.gather(shards, failed=failed)
+        sync(*devices)
+        times[failed] = time.perf_counter() - t0
+        bad = [p for p in range(k + m) if not _data_matches(recon[p], words[p])]
+        if bad:
+            raise AssertionError(f"EC gather (failed={failed}): positions "
+                                 f"{bad} differ")
+    del shards, recon
+    ring, _ = ring_devices(device, WRITE_RING)
+    host = [np.frombuffer(rng.bytes(block_size), dtype=np.uint8)
+            for _ in ring]
+    step = replicated_write_step(make_mesh(ring), WRITE_RING, ec=ec)
+    out = step([host_to_device(bytes_to_words(h), d)
+                for h, d in zip(host, ring)],
+               [host_to_device(native.crc32c_chunks(h), d)
+                for h, d in zip(host, ring)])
+    if int(out["acks"]) != WRITE_RING:
+        raise AssertionError(f"write step acks {int(out['acks'])}")
+    # The step pads each shard to 128 bytes (pad_shard_len), so the host
+    # encoder gets the block zero-padded to k such shards: the same split.
+    slen = pad_shard_len(-(-block_size // k))
+    for p, (h, parity) in enumerate(zip(host, out["parity"])):
+        padded = np.zeros(k * slen, dtype=np.uint8)
+        padded[: len(h)] = h
+        want = np.stack([np.frombuffer(x, dtype=np.uint8)
+                         for x in encode(padded, k, m)[k:]])
+        if not np.array_equal(parity.cpu().numpy(), want):
+            raise AssertionError(f"write step parity differs at position {p}")
+    return {"phase": "ec_collective", "devices": [str(d) for d in devices],
+            "mapping": mapping, "ec": [k, m], "block_size": block_size,
+            "shard_bytes": shards_s * CHECKSUM_CHUNK_SIZE,
+            "scatter_acks": acks, "scatter_s": scatter_s,
+            "gather_s": times[None], "gather_degraded_s": times[4],
+            "gather_failed": 4, "exact": True,
+            "write_step": {"devices": [str(d) for d in ring],
+                           "acks": int(out["acks"]), "parity_exact": True},
+            "scatter_launches": after_scatter, "launches": launches()}
+
+
 # ---------------------------------------------------------- card phases
 
 
@@ -673,13 +966,14 @@ def _kernels_vs_plain(device: torch.device, rng) -> dict:
             "gf256_matmul": gf}
 
 
-def _time_ms(fn, device, held: bool = True) -> float:
-    """Device time of one call (``kernels.time_ms``); ``held=False`` times
-    single calls, the host's launch latency included."""
+def _time_ms(fn, device, held: bool = True, **runs) -> float:
+    """Device time of one call (``kernels.time_ms``, which ``runs`` passes
+    ``runs``/``warmup`` to); ``held=False`` times single calls, the host's
+    launch latency included."""
     from tpudfs_torch.gpu import kernels
 
     with torch.cuda.device(device):
-        return kernels.time_ms(fn, held=held)
+        return kernels.time_ms(fn, held=held, **runs)
 
 
 def _kernel_times(device: torch.device, rng, counts: dict,
@@ -787,6 +1081,63 @@ def _kernel_times(device: torch.device, rng, counts: dict,
     return phase, table
 
 
+def _timed_row(device, fn, plain, nbytes: int, launches: int,
+               **shape) -> dict:
+    """Kernel ``fn`` against its plain twin ``plain`` at one shape: device
+    time (stream held), one call, the plain twin's time (single calls, 3
+    runs: it takes tenths of a second at these shapes), the largest
+    difference and the byte bound."""
+    err = _same(fn(), plain())
+    return {**shape, "launches": launches, "max_abs_err": err,
+            "ms": _time_ms(fn, device), "call_ms": _time_ms(fn, device, False),
+            "plain_ms": _time_ms(plain, device, False, runs=3, warmup=1),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _write_kernel_times(device, rng, by_path, write, ec, phase, table) -> None:
+    """Both kernels at the write side's shapes, added to the kernel_times
+    phase and, nested by shape, to the table's rows: the chunk CRCs of one
+    write position's verify launch (R replica groups of B blocks), the
+    RS(k,m) encode of one scatter position (k rows in, m out, at the
+    scatter's 512-byte shard width), and the gather's (k, k+m) runtime
+    decode matrix, which reads all k+m rows, its zero column included."""
+    c = write["replication"] * write["blocks_per_position"] \
+        * (write["block_size"] // CHECKSUM_CHUNK_SIZE)
+    words = _device_words(rng, (c, 128), device)
+    wcontrib = host_to_device(word_contrib_table(), device)
+    crc = _timed_row(
+        device, lambda: crc32c_chunks_device(words),
+        lambda: crc32c_chunks_plain(words, wcontrib, inv_contrib()),
+        c * 512 + 32 * 128 * 4 + c * 4,
+        by_path["write"]["crc32c_chunks"], chunks=c)
+    del words
+    k, m = ec["ec"]
+    w = ec["shard_bytes"] // 4
+    shards = _device_words(rng, (k + m, w), device)
+    enc = host_to_device(coef_bits(k, m), device)
+    dec = matrix_bits_device(decode_select_matrices(
+        k, m, k + m, k + m, ec["gather_failed"])[0], device)
+    gf_launches = by_path["ec_collective"]["gf256_matmul"]
+    data = shards[:k]
+    encode_row = _timed_row(
+        device, lambda: gf_matmul_words(data, enc),
+        lambda: gf_rows_plain(data, enc),
+        (k + m) * w * 4 + enc.numel() * 4, gf_launches, words=w,
+        matrix=[m, k])
+    decode_row = _timed_row(
+        device, lambda: gf_matmul_words(shards, dec),
+        lambda: gf_rows_plain(shards, dec),
+        (k + m + k) * w * 4 + dec.numel() * 4, gf_launches, words=w,
+        matrix=[k, k + m])
+    phase["crc32c_chunks_write_verify"] = crc
+    phase[f"gf256_scatter_encode_{k}_{m}"] = encode_row
+    phase[f"gf256_gather_decode_{k}_{k + m}"] = decode_row
+    rows = {row["name"]: row for row in table}
+    rows["crc32c_chunks"]["at_write_verify"] = crc
+    rows["gf256_matmul"]["at_scatter_encode"] = encode_row
+    rows["gf256_matmul"]["at_gather_decode"] = decode_row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -811,14 +1162,19 @@ def main(argv=None) -> int:
     emit(ec_rebuild)
     for phase in batched:
         emit(phase)
+    write = write_path(device, seed=args.seed)
+    emit(write)
+    ec = ec_collective(device, seed=args.seed)
+    emit(ec)
     by_path = {"read_path": result["launches"],
-               **{p["phase"]: p["launches"] for p in batched}}
+               **{p["phase"]: p["launches"] for p in batched + [write, ec]}}
     for path, counts in by_path.items():
         never = [k for k in PATH_KERNELS[path] if not counts[k]]
         if never:
             raise AssertionError(f"{path}: kernels never launched: {never}")
     counts = {name: sum(c[name] for c in by_path.values()) for name in KERNELS}
     phase, table = _kernel_times(device, rng, counts, result["block_size"])
+    _write_kernel_times(device, rng, by_path, write, ec, phase, table)
     emit(phase)
     emit({"phase": "kernels", "launches": counts, "by_path": by_path})
     emit({"kernels": table})

@@ -274,3 +274,148 @@ def test_sweep_on_card_bit_exact(cuda_device, tmp_path):
     assert all(b.verified and b.array.device == cuda_device for b in got)
     assert _bytes(got[:6]) == sources["/smoke/big"].tobytes()
     assert _bytes(got[6:]) == sources["/smoke/tail"].tobytes()
+
+
+# ------------------------------------------------------------- write side
+
+
+def _ring_inputs(n: int, chunks: int, seed: int):
+    from tpudfs_torch.common import native
+
+    data = np.random.default_rng(seed).integers(0, 256, n * chunks * 512,
+                                                dtype=np.uint8)
+    return crc32c_cuda.bytes_to_words(data), native.crc32c_chunks(data)
+
+
+def _on(parts):
+    return [u32_to_numpy(p) for p in parts]
+
+
+def test_native_chunk_crc_binding_equals_numpy():
+    """The port's binding of the native ``tpudfs_crc32c_chunks`` (the write
+    group's staging CRC) against the numpy ``crc32c_chunks``, short last
+    chunks included. Needs no card."""
+    from tpudfs_torch.common import checksum, native
+
+    rng = np.random.default_rng(12)
+    for n in (0, 1, 511, 512, 513, 4096 * 3 + 17, 1 << 20):
+        data = rng.integers(0, 256, n, dtype=np.uint8)
+        want = checksum.crc32c_chunks(data)
+        np.testing.assert_array_equal(native.crc32c_chunks(data), want)
+        np.testing.assert_array_equal(native.crc32c_chunks(data.tobytes()), want)
+    np.testing.assert_array_equal(
+        native.crc32c_chunks(data, 4096), checksum.crc32c_chunks(data, 4096))
+
+
+@pytest.mark.parametrize("n,poison", [(3, False), (4, True)])
+def test_replicator_on_card_matches_cpu(cuda_device, n, poison):
+    from tpudfs_torch.gpu import ici_replication as ici
+
+    words, crcs = _ring_inputs(n, 257, seed=n)
+    if poison:
+        crcs[257] ^= 0xDEADBEEF  # position 1's first chunk
+    out = {}
+    for dev in (cuda_device, CPU):
+        mesh = ici.make_mesh([dev] * n)
+        before = crc32c_cuda.crc32c_chunks_device.launches
+        replicas, ok, acks = ici.IciReplicator(mesh, 3).replicate(
+            ici.shard(words, mesh), ici.shard(crcs, mesh))
+        if dev.type == "cuda":
+            assert crc32c_cuda.crc32c_chunks_device.launches == before + n
+            assert acks.device == cuda_device
+            assert all(r.device == cuda_device for r in replicas)
+        out[dev.type] = (_on(replicas), [bool(o) for o in ok], int(acks))
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        np.testing.assert_array_equal(a, b)
+    assert out["cuda"][1:] == out["cpu"][1:]
+    assert out["cuda"][2] == (1 if poison else n)
+
+
+def test_scatter_and_gather_on_card_match_cpu(cuda_device):
+    """RS(6,3) over 9 positions on one card: the shards, ok bits and acks
+    of the scatter, then the gather around position 4 with its rows
+    garbage, equal the CPU run; one encode and two CRC launches a position
+    in the scatter, one decode a position in the gather."""
+    from tpudfs_torch.gpu import ici_replication as ici
+
+    k, m, n = 6, 3, 9
+    words, _ = _ring_inputs(n, 100, seed=9)
+    out = {}
+    for dev in (cuda_device, CPU):
+        mesh = ici.make_mesh([dev] * n)
+        crc0 = crc32c_cuda.crc32c_chunks_device.launches
+        gf0 = rs_cuda.gf_matmul_words.launches
+        shards, ok, acks = ici.EcShardScatter(mesh, k, m).scatter(
+            ici.shard(words, mesh))
+        shards[4].view(torch.int32).fill_(0x25A5A5A5)
+        recon = ici.EcShardGather(mesh, k, m).gather(shards, failed=4)
+        if dev.type == "cuda":
+            assert crc32c_cuda.crc32c_chunks_device.launches == crc0 + 2 * n
+            assert rs_cuda.gf_matmul_words.launches == gf0 + 2 * n
+        out[dev.type] = (_on(shards), _on(recon), [bool(o) for o in ok],
+                         int(acks))
+    for i in (0, 1):
+        for a, b in zip(out["cuda"][i], out["cpu"][i]):
+            np.testing.assert_array_equal(a, b)
+    assert out["cuda"][2:] == out["cpu"][2:] == ([True] * n, n)
+    recon = np.stack(out["cuda"][1]).reshape(n, -1)
+    np.testing.assert_array_equal(recon[:, : 100 * 128],
+                                  words.reshape(n, -1))
+
+
+def test_gather_runtime_decode_matrix_launch_matches_plain(cuda_device):
+    """The gather's (6, 9) decode-and-select matrices (zero column
+    included) through the kernel, for every position, against the plain
+    twin."""
+    from tpudfs_torch.gpu import ici_replication as ici
+
+    rows = _words((9, 4096), 5)
+    for mat in ici.decode_select_matrices(6, 3, 9, 9, 4):
+        got, want = _gf_on_card_and_cpu(rows, rs_cuda._matrix_bits(mat),
+                                        cuda_device)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_write_side_on_card_launches_its_kernels(cuda_device, tmp_path):
+    import chip_smoke
+
+    w = chip_smoke.write_path(cuda_device, workdir=tmp_path,
+                              block_size=1 << 20, nblocks=2)
+    assert w["acks"] == 3 and w["tamper"]["persisted"] == 0
+    assert w["launches"]["crc32c_chunks"] > 0
+    ec = chip_smoke.ec_collective(cuda_device, block_size=1 << 20)
+    assert ec["exact"] and ec["write_step"]["parity_exact"]
+    assert ec["launches"]["crc32c_chunks"] > 0
+    assert ec["launches"]["gf256_matmul"] > 0
+
+
+def test_ring_across_cards_matches_cpu(cuda_device):
+    """Positions on distinct cards (every hop a peer copy, every launch on
+    its position's card): the chain, the RS(2,2) scatter and the gather
+    around position 1 equal the same ring on CPU positions."""
+    from tpudfs_torch.gpu import ici_replication as ici
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    n = min(n, 4)
+    cards = [torch.device("cuda", i) for i in range(n)]
+    words, crcs = _ring_inputs(n, 64, seed=40 + n)
+    k, m = max(1, n - 2), min(2, n - 1)
+    out = {}
+    for devs in (cards, [CPU] * n):
+        mesh = ici.make_mesh(devs)
+        replicas, ok, acks = ici.IciReplicator(mesh, min(3, n)).replicate(
+            ici.shard(words, mesh), ici.shard(crcs, mesh))
+        shards, sok, sacks = ici.EcShardScatter(mesh, k, m).scatter(
+            ici.shard(words, mesh))
+        shards[1].view(torch.int32).fill_(-1)
+        recon = ici.EcShardGather(mesh, k, m).gather(shards, failed=1)
+        if devs is cards:
+            assert [r.device for r in replicas + shards + recon] == cards * 3
+        out[devs[0].type] = (_on(replicas), _on(shards), _on(recon),
+                             [bool(o) for o in ok + sok], int(acks), int(sacks))
+    for i in range(3):
+        for a, b in zip(out["cuda"][i], out["cpu"][i]):
+            np.testing.assert_array_equal(a, b)
+    assert out["cuda"][3:] == out["cpu"][3:] == ([True] * (2 * n), n, n)

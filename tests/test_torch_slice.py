@@ -1,9 +1,12 @@
 """The port's slice as a whole, on the CPU at a small size: ``chip_smoke.py``'s
 read path (replicated, tail and degraded RS(6,3) blocks, one confirm, a
-tampered replica flagged and recovered) and its batched phases (the read
-combiner, the native sweep pump, the infeed), the rule that the port and
-the smoke script import neither jax nor ``tpudfs`` and load no library the
-JAX package built, and the script's refusal to run without a card."""
+tampered replica flagged and recovered), its batched phases (the read
+combiner, the native sweep pump, the infeed) and its write side (the
+collective write group with a tampered round, the RS(6,3) scatter and
+gather on a 9-position ring, the write step's parity), the rule that the
+port and the smoke script import neither jax nor ``tpudfs`` and load no
+library the JAX package built, and the script's refusal to run without a
+card."""
 
 import ast
 import asyncio
@@ -19,6 +22,7 @@ import torch
 import chip_smoke
 from tpudfs_torch.client.local import LocalClient
 from tpudfs_torch.gpu.hbm_reader import HbmReader
+from tpudfs_torch.gpu.ici_replication import make_mesh
 from tpudfs_torch.gpu.infeed import DfsInfeed
 from tpudfs_torch.gpu.read_combiner import ReadCombiner
 
@@ -55,6 +59,34 @@ def test_read_path_small_on_cpu(tmp_path):
     assert list(tmp_path.iterdir()) == []  # the layout is removed
 
 
+def test_write_side_small_on_cpu(tmp_path):
+    w = chip_smoke.write_path(CPU, workdir=tmp_path, block_size=16384,
+                              nblocks=2)
+    assert w["mapping"] == "all 3 positions on cpu"
+    assert w["devices"] == ["cpu"] * 3 and w["replication"] == 3
+    # One round of B=2 a pass; every store read back 3 copies per block.
+    assert (w["rounds"], w["acks"]) == (1, 3)
+    assert (w["first_pass"]["rounds"], w["first_pass"]["acks"]) == (1, 3)
+    assert w["copies_read_back"] == 3 * 3 * 2
+    assert w["bytes"] == 3 * 2 * 16384 and w["blocks"] == 12
+    assert set(w["stage_s"]) == {"stage", "h2d", "replicate", "acks",
+                                 "drain", "persist"}
+    assert w["tamper"] == {"acks": 0, "round_failures": 1,
+                           "futures_failed": 3, "persisted": 0}
+    assert (w["round_failures"], w["persist_failures"]) == (1, 0)
+    assert set(w["host"]) == {"bytes", "d2h_pageable_gbps", "cut_gbps",
+                              "persist_one_block_s"}  # no pinned copy on CPU
+    ec = chip_smoke.ec_collective(CPU, block_size=16384)
+    assert ec["mapping"] == "all 9 positions on cpu"
+    assert ec["scatter_acks"] == 9 and ec["exact"]
+    assert ec["shard_bytes"] == 3072  # ceil(16384 / 6) in whole chunks
+    assert ec["write_step"] == {"devices": ["cpu"] * 3, "acks": 3,
+                                "parity_exact": True}
+    no_launch = {"crc32c_chunks": 0, "crc32c_blocks": 0, "gf256_matmul": 0}
+    assert w["launches"] == ec["launches"] == no_launch
+    assert list(tmp_path.iterdir()) == []  # the stores are removed
+
+
 def test_read_path_rejects_a_broken_layout(tmp_path, monkeypatch):
     """The smoke fails loudly when a read comes back wrong."""
     real = chip_smoke.device_array_to_bytes
@@ -78,11 +110,14 @@ from pathlib import Path
 import torch
 chip_smoke.read_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
                      block_size=16384, nblocks=2, tail_size=5000)
+chip_smoke.write_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
+                      block_size=4096, nblocks=1)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "tpudfs" or m.startswith("tpudfs."))
 assert not bad, bad
-for m in ("hbm_reader", "read_combiner", "infeed"):
+for m in ("hbm_reader", "read_combiner", "infeed", "ici_replication",
+          "write_group"):
     assert "tpudfs_torch.gpu." + m in sys.modules, m
 assert "tpudfs_torch.common.native" in sys.modules
 # The block I/O engine is the port's own build, not the JAX package's.
@@ -111,7 +146,8 @@ def _imports(path: Path) -> set[str]:
 def test_port_sources_name_no_jax_or_tpudfs_import():
     files = sorted((REPO / "tpudfs_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 15
-    for name in ("common/native.py", "gpu/read_combiner.py", "gpu/infeed.py"):
+    for name in ("common/native.py", "gpu/read_combiner.py", "gpu/infeed.py",
+                 "gpu/ici_replication.py", "gpu/write_group.py"):
         assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):
@@ -138,10 +174,13 @@ def test_chip_smoke_without_a_card_fails_and_prints_no_result(tmp_path):
 def test_entry_points_default_to_cuda(tmp_path):
     client = LocalClient({}, {})
     if torch.cuda.is_available():
+        assert make_mesh().positions()[0].type == "cuda"
         assert HbmReader(client).devices[0].type == "cuda"
         assert ReadCombiner(client).device.type == "cuda"
         assert DfsInfeed(client, []).reader.devices[0].type == "cuda"
     else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             HbmReader(client)
         with pytest.raises(RuntimeError, match="no CUDA device"):

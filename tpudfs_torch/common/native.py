@@ -16,10 +16,13 @@ Bound entries (each with explicit ``argtypes`` and ``restype``):
 - ``tpudfs_sweep_start`` / ``_wait`` / ``_release`` / ``_stop``: the sweep
   pump, a native producer thread filling a ring of round buffers (handles
   are int64: a C ``int`` would truncate the pointer);
-- ``tpudfs_crc32c``.
+- ``tpudfs_crc32c``;
+- ``tpudfs_crc32c_chunks``: per-chunk CRC32C of one buffer
+  (:func:`crc32c_chunks`), the collective write group's staging CRC.
 
 :func:`blocks_read_plain` is the plain Python twin of the batched read,
-with the same results.
+with the same results; ``common.checksum.crc32c_chunks`` (numpy) is the
+plain twin of :func:`crc32c_chunks`.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from pathlib import Path
 
 import numpy as np
 
-from tpudfs_torch.common.checksum import crc32c
+from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c
 
 REPO = Path(__file__).resolve().parents[2]
 SOURCES = [REPO / "native" / "blockio.cc", REPO / "native" / "crc32c.cc"]
@@ -42,6 +45,7 @@ BUILD_DIR = REPO / "build" / "tpudfs_torch"
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-Wextra"]
 
 _P, _U64, _I64 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64
+_SIZE = ctypes.c_size_t
 #: symbol -> (restype, argtypes)
 _SIGNATURES = {
     "tpudfs_blocks_read": (_I64, [_P, _U64, _U64, _P, _P]),
@@ -50,7 +54,8 @@ _SIGNATURES = {
     "tpudfs_sweep_wait": (_I64, [_I64, _I64]),
     "tpudfs_sweep_release": (None, [_I64, _I64]),
     "tpudfs_sweep_stop": (None, [_I64]),
-    "tpudfs_crc32c": (ctypes.c_uint32, [ctypes.c_uint32, _P, ctypes.c_size_t]),
+    "tpudfs_crc32c": (ctypes.c_uint32, [ctypes.c_uint32, _P, _SIZE]),
+    "tpudfs_crc32c_chunks": (None, [_P, _SIZE, _SIZE, _P]),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -124,6 +129,26 @@ def blocks_read(paths: list[str], stride: int, out_ptr: int, *,
         return sizes, crcs
     lib().tpudfs_blocks_read(cpaths, n, stride, out_ptr, sizes.ctypes.data)
     return sizes, None
+
+
+def crc32c_chunks(data, chunk: int = CHECKSUM_CHUNK_SIZE) -> np.ndarray:
+    """Per-chunk CRC32C (uint32, the last chunk may be short) of a
+    bytes-like object or a contiguous numpy array, in one native call that
+    runs without the interpreter lock. Same results as the numpy
+    ``common.checksum.crc32c_chunks``."""
+    if isinstance(data, np.ndarray):
+        if not data.flags.c_contiguous:
+            raise ValueError("crc32c_chunks needs a contiguous array")
+        buf = data.reshape(-1).view(np.uint8)
+    else:
+        buf = np.frombuffer(data, dtype=np.uint8)
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    out = np.empty(-(-len(buf) // chunk), dtype=np.uint32)
+    if len(buf):
+        lib().tpudfs_crc32c_chunks(buf.ctypes.data, len(buf), chunk,
+                                   out.ctypes.data)
+    return out
 
 
 def blocks_read_plain(paths: list[str], stride: int, out: np.ndarray, *,

@@ -166,9 +166,10 @@ def crc32c_chunks_device(words: torch.Tensor,
     from tpudfs_torch.gpu import kernels
 
     w, wc, stream = _cuda_args(words, wcontrib)
-    rc = kernels.lib("crc32c").tpudfs_crc32c_chunks(
-        w, words.shape[0], wc, (inv ^ 0xFFFFFFFF) & 0xFFFFFFFF,
-        out.data_ptr(), stream)
+    with torch.cuda.device(words.device):  # the stream's card is current
+        rc = kernels.lib("crc32c").tpudfs_crc32c_chunks(
+            w, words.shape[0], wc, (inv ^ 0xFFFFFFFF) & 0xFFFFFFFF,
+            out.data_ptr(), stream)
     kernels.check("crc32c", rc)
     crc32c_chunks_device.launches += 1
     return out.view(torch.uint32)
@@ -271,9 +272,10 @@ def crc32c_blocks_device(words: torch.Tensor, nblocks: int, *,
                                                  words.device, fold_ops)
     out = torch.empty(nblocks, dtype=torch.int32, device=words.device)
     w, wc, op, stream = _cuda_args(words, wcontrib, ops)
-    rc = kernels.lib("crc32c").tpudfs_crc32c_blocks(
-        w, nblocks, cpb, wc, (inv ^ 0xFFFFFFFF) & 0xFFFFFFFF, op,
-        int(from_fold), out.data_ptr(), stream)
+    with torch.cuda.device(words.device):
+        rc = kernels.lib("crc32c").tpudfs_crc32c_blocks(
+            w, nblocks, cpb, wc, (inv ^ 0xFFFFFFFF) & 0xFFFFFFFF, op,
+            int(from_fold), out.data_ptr(), stream)
     kernels.check("crc32c", rc)
     crc32c_blocks_device.launches += 1
     return out.view(torch.uint32)

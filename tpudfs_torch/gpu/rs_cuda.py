@@ -113,10 +113,12 @@ def _gf_cuda(words: torch.Tensor, coefs: torch.Tensor) -> torch.Tensor:
         raise ValueError("coefs must be uint32 on the words' device")
     out = torch.empty((rows, words.shape[1]), dtype=torch.int32,
                       device=words.device)
-    rc = kernels.lib("gf256").tpudfs_gf256_matmul(
-        words.data_ptr(), words.shape[1], rows, cols, coefs.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(words.device).cuda_stream,
-    )
+    with torch.cuda.device(words.device):  # the stream's card is current
+        rc = kernels.lib("gf256").tpudfs_gf256_matmul(
+            words.data_ptr(), words.shape[1], rows, cols, coefs.data_ptr(),
+            out.data_ptr(),
+            torch.cuda.current_stream(words.device).cuda_stream,
+        )
     kernels.check("gf256", rc)
     return out.view(torch.uint32)
 
