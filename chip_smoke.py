@@ -768,7 +768,9 @@ async def _write_tamper(group, members, rng, block_size: int) -> dict:
         group.replicator.replicate = real
     stored = [bid for mb in members for bid in bids
               if mb.store.block_path(bid).exists()]
-    if not all(isinstance(e, group.Error) for e in got)             or group.stats.round_failures != failures0 + 1             or group.stats.last_acks >= n or stored:
+    if (not all(isinstance(e, group.Error) for e in got)
+            or group.stats.round_failures != failures0 + 1
+            or group.stats.last_acks >= n or stored):
         raise AssertionError(f"tampered round did not fail as a whole: {got}, "
                              f"acks {group.stats.last_acks}, stored {stored}")
     return {"acks": group.stats.last_acks, "round_failures": 1,
@@ -841,6 +843,7 @@ def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
         if bad:
             raise AssertionError(f"EC gather (failed={failed}): positions "
                                  f"{bad} differ")
+    after_gather = launches()
     del shards, recon
     ring, _ = ring_devices(device, WRITE_RING)
     host = [np.frombuffer(rng.bytes(block_size), dtype=np.uint8)
@@ -862,6 +865,11 @@ def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
                          for x in encode(padded, k, m)[k:]])
         if not np.array_equal(parity.cpu().numpy(), want):
             raise AssertionError(f"write step parity differs at position {p}")
+    total = launches()
+    gf = "gf256_matmul"
+    # Encodes: the scatter's and the write step's; decodes: the gathers'.
+    gf_encodes = after_scatter[gf] + total[gf] - after_gather[gf]
+    gf_decodes = after_gather[gf] - after_scatter[gf]
     return {"phase": "ec_collective", "devices": [str(d) for d in devices],
             "mapping": mapping, "ec": [k, m], "block_size": block_size,
             "shard_bytes": shards_s * CHECKSUM_CHUNK_SIZE,
@@ -870,7 +878,9 @@ def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
             "gather_failed": 4, "exact": True,
             "write_step": {"devices": [str(d) for d in ring],
                            "acks": int(out["acks"]), "parity_exact": True},
-            "scatter_launches": after_scatter, "launches": launches()}
+            "scatter_launches": after_scatter,
+            "gf256_launches": {"encode": gf_encodes, "decode": gf_decodes},
+            "launches": total}
 
 
 # ---------------------------------------------------------- card phases
@@ -1086,8 +1096,11 @@ def _timed_row(device, fn, plain, nbytes: int, launches: int,
     """Kernel ``fn`` against its plain twin ``plain`` at one shape: device
     time (stream held), one call, the plain twin's time (single calls, 3
     runs: it takes tenths of a second at these shapes), the largest
-    difference and the byte bound."""
+    difference (any raises: the kernels are exact) and the byte bound."""
     err = _same(fn(), plain())
+    if err:
+        raise AssertionError(f"kernel differs from its plain twin at {shape}: "
+                             f"{err}")
     return {**shape, "launches": launches, "max_abs_err": err,
             "ms": _time_ms(fn, device), "call_ms": _time_ms(fn, device, False),
             "plain_ms": _time_ms(plain, device, False, runs=3, warmup=1),
@@ -1100,7 +1113,10 @@ def _write_kernel_times(device, rng, by_path, write, ec, phase, table) -> None:
     write position's verify launch (R replica groups of B blocks), the
     RS(k,m) encode of one scatter position (k rows in, m out, at the
     scatter's 512-byte shard width), and the gather's (k, k+m) runtime
-    decode matrix, which reads all k+m rows, its zero column included."""
+    decode matrix. The decode's bound counts the 2k rows the function
+    needs (k survivors in, k rows out): the matrix's zero column adds
+    nothing to the output. The kernel reads all k+m rows, zero column
+    included; those bytes are reported beside it, not in the bound."""
     c = write["replication"] * write["blocks_per_position"] \
         * (write["block_size"] // CHECKSUM_CHUNK_SIZE)
     words = _device_words(rng, (c, 128), device)
@@ -1117,18 +1133,19 @@ def _write_kernel_times(device, rng, by_path, write, ec, phase, table) -> None:
     enc = host_to_device(coef_bits(k, m), device)
     dec = matrix_bits_device(decode_select_matrices(
         k, m, k + m, k + m, ec["gather_failed"])[0], device)
-    gf_launches = by_path["ec_collective"]["gf256_matmul"]
+    gf_launches = ec["gf256_launches"]
     data = shards[:k]
     encode_row = _timed_row(
         device, lambda: gf_matmul_words(data, enc),
         lambda: gf_rows_plain(data, enc),
-        (k + m) * w * 4 + enc.numel() * 4, gf_launches, words=w,
+        (k + m) * w * 4 + enc.numel() * 4, gf_launches["encode"], words=w,
         matrix=[m, k])
     decode_row = _timed_row(
         device, lambda: gf_matmul_words(shards, dec),
         lambda: gf_rows_plain(shards, dec),
-        (k + m + k) * w * 4 + dec.numel() * 4, gf_launches, words=w,
+        2 * k * w * 4 + dec.numel() * 4, gf_launches["decode"], words=w,
         matrix=[k, k + m])
+    decode_row["bytes_read_by_design"] = (k + m + k) * w * 4 + dec.numel() * 4
     phase["crc32c_chunks_write_verify"] = crc
     phase[f"gf256_scatter_encode_{k}_{m}"] = encode_row
     phase[f"gf256_gather_decode_{k}_{k + m}"] = decode_row

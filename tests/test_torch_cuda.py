@@ -17,6 +17,7 @@ from tpudfs_torch.client.local import DfsError, LocalClient
 from tpudfs_torch.gpu import host_to_device, u32_to_numpy
 from tpudfs_torch.gpu import crc32c_cuda, rs_cuda
 from tpudfs_torch.gpu.hbm_reader import HbmReader, device_array_to_bytes
+from torch_ring import shard
 
 CPU = torch.device("cpu")
 
@@ -319,7 +320,7 @@ def test_replicator_on_card_matches_cpu(cuda_device, n, poison):
         mesh = ici.make_mesh([dev] * n)
         before = crc32c_cuda.crc32c_chunks_device.launches
         replicas, ok, acks = ici.IciReplicator(mesh, 3).replicate(
-            ici.shard(words, mesh), ici.shard(crcs, mesh))
+            shard(words, mesh), shard(crcs, mesh))
         if dev.type == "cuda":
             assert crc32c_cuda.crc32c_chunks_device.launches == before + n
             assert acks.device == cuda_device
@@ -346,7 +347,7 @@ def test_scatter_and_gather_on_card_match_cpu(cuda_device):
         crc0 = crc32c_cuda.crc32c_chunks_device.launches
         gf0 = rs_cuda.gf_matmul_words.launches
         shards, ok, acks = ici.EcShardScatter(mesh, k, m).scatter(
-            ici.shard(words, mesh))
+            shard(words, mesh))
         shards[4].view(torch.int32).fill_(0x25A5A5A5)
         recon = ici.EcShardGather(mesh, k, m).gather(shards, failed=4)
         if dev.type == "cuda":
@@ -387,6 +388,8 @@ def test_write_side_on_card_launches_its_kernels(cuda_device, tmp_path):
     assert ec["exact"] and ec["write_step"]["parity_exact"]
     assert ec["launches"]["crc32c_chunks"] > 0
     assert ec["launches"]["gf256_matmul"] > 0
+    # 9 scatter encodes + 3 write-step parities; 2 gathers x 9 decodes.
+    assert ec["gf256_launches"] == {"encode": 12, "decode": 18}
 
 
 def test_ring_across_cards_matches_cpu(cuda_device):
@@ -406,9 +409,9 @@ def test_ring_across_cards_matches_cpu(cuda_device):
     for devs in (cards, [CPU] * n):
         mesh = ici.make_mesh(devs)
         replicas, ok, acks = ici.IciReplicator(mesh, min(3, n)).replicate(
-            ici.shard(words, mesh), ici.shard(crcs, mesh))
+            shard(words, mesh), shard(crcs, mesh))
         shards, sok, sacks = ici.EcShardScatter(mesh, k, m).scatter(
-            ici.shard(words, mesh))
+            shard(words, mesh))
         shards[1].view(torch.int32).fill_(-1)
         recon = ici.EcShardGather(mesh, k, m).gather(shards, failed=1)
         if devs is cards:

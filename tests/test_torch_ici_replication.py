@@ -21,6 +21,7 @@ from tpudfs_torch.common import erasure as port_erasure
 from tpudfs_torch.gpu import ici_replication as port
 from tpudfs_torch.gpu import state
 from tpudfs_torch.gpu.crc32c_cuda import bytes_to_words
+from torch_ring import shard, unshard
 
 CPU = torch.device("cpu")
 
@@ -47,7 +48,7 @@ def _port_mesh(shape, names=("hosts",)) -> port.Mesh:
 
 
 def _same(port_parts, ref_arr) -> None:
-    np.testing.assert_array_equal(port.unshard(port_parts), np.asarray(ref_arr))
+    np.testing.assert_array_equal(unshard(port_parts), np.asarray(ref_arr))
 
 
 def _data_of(recon: np.ndarray, i: int, k: int, nbytes: int) -> bytes:
@@ -73,14 +74,14 @@ def test_chain_layout_matches_reference(ring4):
     words, crcs = _inputs(_blocks(4, 2, seed=2))
     want = rep.replicate(_ref_put(words, mesh), _ref_put(crcs, mesh))
     pmesh = port.make_mesh([CPU] * 4)
-    got = port.IciReplicator(pmesh, 3).replicate(port.shard(words, pmesh),
-                                                 port.shard(crcs, pmesh))
+    got = port.IciReplicator(pmesh, 3).replicate(shard(words, pmesh),
+                                                 shard(crcs, pmesh))
     _same(got[0], want[0])
     _same(got[1], want[1])
     assert int(got[2]) == int(want[2]) == 4
     assert got[2].dtype == torch.int32 and got[2].dim() == 0
     # Host i holds the groups of hosts i, i-1, i-2.
-    rep_np = port.unshard(got[0]).reshape(4, 3, 2, 128)
+    rep_np = unshard(got[0]).reshape(4, 3, 2, 128)
     for host in range(4):
         for r in range(3):
             np.testing.assert_array_equal(
@@ -94,8 +95,8 @@ def test_corruption_flags_the_same_positions(ring4):
     want = rep.replicate(_ref_put(words, mesh), _ref_put(crcs, mesh))
     pmesh = port.make_mesh([CPU] * 4)
     replicas, ok, acks = port.IciReplicator(pmesh, 3).replicate(
-        port.shard(words, pmesh), port.shard(crcs, pmesh))
-    assert port.unshard(ok).tolist() == np.asarray(want[1]).tolist() \
+        shard(words, pmesh), shard(crcs, pmesh))
+    assert unshard(ok).tolist() == np.asarray(want[1]).tolist() \
         == [True, False, False, False]
     assert int(acks) == int(want[2]) == 1
     _same(replicas, want[0])
@@ -109,8 +110,8 @@ def test_single_position_ring_is_the_degenerate_chain():
     want = ref.IciReplicator(mesh, 3).replicate(_ref_put(words, mesh),
                                                 _ref_put(crcs, mesh))
     pmesh = port.make_mesh([CPU])
-    got = port.IciReplicator(pmesh, 3).replicate(port.shard(words, pmesh),
-                                                 port.shard(crcs, pmesh))
+    got = port.IciReplicator(pmesh, 3).replicate(shard(words, pmesh),
+                                                 shard(crcs, pmesh))
     _same(got[0], want[0])
     assert int(got[2]) == int(want[2]) == 1
 
@@ -126,7 +127,7 @@ def test_pod_mesh_2d_chain_and_ec_ride_the_last_axis():
     blocks = _blocks(8, C, seed=33)
     words, crcs = _inputs(blocks)
     w_ref, c_ref = _ref_put(words, mesh), _ref_put(crcs, mesh)
-    w_port, c_port = port.shard(words, pmesh), port.shard(crcs, pmesh)
+    w_port, c_port = shard(words, pmesh), shard(crcs, pmesh)
 
     want = ref.IciReplicator(mesh, 3, axis="ici").replicate(w_ref, c_ref)
     got = port.IciReplicator(pmesh, 3, axis="ici").replicate(w_port, c_port)
@@ -146,9 +147,9 @@ def test_pod_mesh_2d_chain_and_ec_ride_the_last_axis():
     want = ref.EcShardGather(mesh, k, m, axis="ici").gather(
         _ref_put(broken, mesh), failed=1)
     recon = port.EcShardGather(pmesh, k, m, axis="ici").gather(
-        port.shard(broken, pmesh), failed=1)
+        shard(broken, pmesh), failed=1)
     _same(recon, want)
-    out = port.unshard(recon).reshape(8, k, -1, 128)
+    out = unshard(recon).reshape(8, k, -1, 128)
     for i in range(8):
         assert _data_of(out, i, k, C * 512) == blocks[i], f"host {i}"
 
@@ -180,12 +181,12 @@ def test_replicated_write_step_parity_matches_reference():
         _ref_put(words, mesh), _ref_put(crcs, mesh))
     pmesh = port.make_mesh([CPU] * 8)
     got = port.replicated_write_step(pmesh, 3, ec=(6, 3))(
-        port.shard(words, pmesh), port.shard(crcs, pmesh))
+        shard(words, pmesh), shard(crcs, pmesh))
     for key in ("replicas", "ok", "parity"):
         _same(got[key], want[key])
     assert int(got["acks"]) == int(want["acks"]) == 8
     for i in (0, 5):
-        parity = port.unshard(got["parity"]).reshape(8, 3, -1)[i]
+        parity = unshard(got["parity"]).reshape(8, 3, -1)[i]
         assert [bytes(p) for p in parity] == \
             port_erasure.encode(blocks[i], 6, 3)[6:] == \
             ref_erasure.encode(blocks[i], 6, 3)[6:]
@@ -205,7 +206,7 @@ def scattered(request):
     blocks = _blocks(8, 8, seed=51)
     words, _ = _inputs(blocks)
     want = ref.EcShardScatter(mesh, k, m).scatter(_ref_put(words, mesh))
-    got = port.EcShardScatter(pmesh, k, m).scatter(port.shard(words, pmesh))
+    got = port.EcShardScatter(pmesh, k, m).scatter(shard(words, pmesh))
     return {"k": k, "m": m, "mesh": mesh, "pmesh": pmesh, "blocks": blocks,
             "ref": want, "port": got,
             "ref_gather": ref.EcShardGather(mesh, k, m),
@@ -223,10 +224,10 @@ def test_gather_reconstructs_around_a_failed_position(scattered, failed):
         host[failed] = 0xAB  # the failed position's whole group is garbage
     broken = host.reshape(np.asarray(s["ref"][0]).shape)
     want = s["ref_gather"].gather(_ref_put(broken, s["mesh"]), failed=failed)
-    recon = s["port_gather"].gather(port.shard(broken, s["pmesh"]),
+    recon = s["port_gather"].gather(shard(broken, s["pmesh"]),
                                     failed=failed)
     _same(recon, want)
-    out = port.unshard(recon).reshape(8, k, -1, 128)
+    out = unshard(recon).reshape(8, k, -1, 128)
     for i in range(8):
         assert _data_of(out, i, k, 8 * 512) == s["blocks"][i], f"host {i}"
     # The reference's decode matrices, carried across, drive the same result.
@@ -235,7 +236,7 @@ def test_gather_reconstructs_around_a_failed_position(scattered, failed):
     np.testing.assert_array_equal(state.own_arrays([key])[key], ref_mats)
     carried = state.from_reference({key: ref_mats}, CPU)[key]
     assert carried.dtype == torch.uint8
-    _same(s["port_gather"].gather(port.shard(broken, s["pmesh"]),
+    _same(s["port_gather"].gather(shard(broken, s["pmesh"]),
                                   failed=failed, matrices=carried), want)
 
 
@@ -246,11 +247,11 @@ def test_gather_rejects_a_small_mesh_and_a_failure_on_one_position():
         port.EcShardGather(port.make_mesh([CPU] * 2), 2, 1)
     words, _ = _inputs(_blocks(1, 4, seed=6))
     pmesh = port.make_mesh([CPU])
-    shards = port.EcShardScatter(pmesh, 2, 1).scatter(port.shard(words, pmesh))[0]
+    shards = port.EcShardScatter(pmesh, 2, 1).scatter(shard(words, pmesh))[0]
     gather = port.EcShardGather(pmesh, 2, 1)
     with pytest.raises(ValueError, match="1-position"):
         gather.gather(shards, failed=0)
-    recon = port.unshard(gather.gather(shards)).reshape(1, 2, -1, 128)
+    recon = unshard(gather.gather(shards)).reshape(1, 2, -1, 128)
     assert _data_of(recon, 0, 2, 4 * 512) == words.tobytes()
 
 
@@ -264,9 +265,9 @@ def test_rs63_full_geometry_on_nine_positions():
     words, _ = _inputs(blocks)
     pmesh = port.make_mesh([CPU] * n)
     shards, ok, acks = port.EcShardScatter(pmesh, k, m).scatter(
-        port.shard(words, pmesh))
-    assert int(acks) == n and port.unshard(ok).all()
-    out = port.unshard(shards).reshape(n, k + m, -1, 128)
+        shard(words, pmesh))
+    assert int(acks) == n and unshard(ok).all()
+    out = unshard(shards).reshape(n, k + m, -1, 128)
     per = -(-(C * 512) // k)
     slen = -(-per // 512) * 512
     for i in range(n):
@@ -281,8 +282,8 @@ def test_rs63_full_geometry_on_nine_positions():
         host = out.copy()
         if failed is not None:
             host[failed] = 0xA5
-        recon = port.unshard(gather.gather(
-            port.shard(host.reshape(n * (k + m), -1, 128), pmesh),
+        recon = unshard(gather.gather(
+            shard(host.reshape(n * (k + m), -1, 128), pmesh),
             failed=failed)).reshape(n, k, -1, 128)
         for i in range(n):
             assert _data_of(recon, i, k, C * 512) == blocks[i], (failed, i)
@@ -294,15 +295,15 @@ def test_hops_copy_even_between_positions_on_one_device():
     nothing that came out."""
     pmesh = port.make_mesh([CPU] * 3)
     words, crcs = _inputs(_blocks(3, 4, seed=8))
-    w, c = port.shard(words, pmesh), port.shard(crcs, pmesh)
+    w, c = shard(words, pmesh), shard(crcs, pmesh)
     replicas, _, _ = port.IciReplicator(pmesh, 3).replicate(w, c)
     shards, _, _ = port.EcShardScatter(pmesh, 2, 1).scatter(w)
     recon = port.EcShardGather(pmesh, 2, 1).gather(shards)
-    before = [port.unshard(x).copy() for x in (replicas, shards, recon)]
+    before = [unshard(x).copy() for x in (replicas, shards, recon)]
     for t in w + c + shards:
         t.view(torch.int32).fill_(-1)
     for x, b in zip((replicas, recon), (before[0], before[2])):
-        np.testing.assert_array_equal(port.unshard(x), b)
+        np.testing.assert_array_equal(unshard(x), b)
     storages = {t.untyped_storage().data_ptr() for t in replicas + shards
                 + recon + w + c}
     assert len(storages) == len(replicas + shards + recon + w + c)

@@ -84,6 +84,7 @@ def test_write_side_small_on_cpu(tmp_path):
                                 "parity_exact": True}
     no_launch = {"crc32c_chunks": 0, "crc32c_blocks": 0, "gf256_matmul": 0}
     assert w["launches"] == ec["launches"] == no_launch
+    assert ec["gf256_launches"] == {"encode": 0, "decode": 0}
     assert list(tmp_path.iterdir()) == []  # the stores are removed
 
 

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE
-from tpudfs_torch.gpu import host_to_device, resolve_device, u32_to_numpy
+from tpudfs_torch.gpu import resolve_device
 from tpudfs_torch.gpu.crc32c_cuda import WORDS_PER_CHUNK, crc32c_chunks_device
 from tpudfs_torch.gpu.rs_cuda import (
     decode_matrix,
@@ -74,25 +74,6 @@ def make_mesh(devices=None, axis: str = "hosts") -> Mesh:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     return Mesh(list(devices), (axis,))
-
-
-def shard(arr: np.ndarray, mesh: Mesh) -> list[torch.Tensor]:
-    """Split a host array into equal row blocks, one per flat position, each
-    copied to its position's device (the reference's ``device_put`` with
-    the mesh's row sharding)."""
-    devs = mesh.positions()
-    if arr.shape[0] % len(devs):
-        raise ValueError(f"{arr.shape[0]} rows do not split over "
-                         f"{len(devs)} positions")
-    return [host_to_device(np.array(part), d)
-            for part, d in zip(np.split(arr, len(devs)), devs)]
-
-
-def unshard(parts: list[torch.Tensor]) -> np.ndarray:
-    """The per-position tensors as one host array (their concatenation, the
-    reference's ``np.asarray`` of a sharded array)."""
-    return np.concatenate([u32_to_numpy(p) if p.dtype == torch.uint32
-                           else p.cpu().numpy() for p in parts])
 
 
 def _ring_axis(mesh: Mesh, axis: str | None) -> str:
