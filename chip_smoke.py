@@ -13,7 +13,8 @@ main path's shapes, and checks every byte that comes out.
 Output (stdout): the card's ``nvidia-smi`` name and power limit, one JSON
 line per phase (``device``, ``build``, ``kernels_vs_plain``, ``read_path``,
 ``ec_rebuild``, ``combined``, ``sweep``, ``infeed``, ``write``,
-``ec_collective``, ``kernel_times``, ``kernels``), the kernel table
+``ec_collective``, ``restore``, ``dataset``, ``kernel_times``,
+``kernels``), the kernel table
 ``{"kernels": [...]}`` (each row at the read path's shape, with the write
 side's shapes nested in it), and last
 ``{"ok": true, "device": {...}}``. Any mismatch raises: the run exits
@@ -55,13 +56,30 @@ enough of them, else all to ``cuda:0``; each phase prints its mapping):
   4 with its rows overwritten; and ``replicated_write_step(ec=(6,3))`` on
   the 3-ring against the host encoder.
 
-Data is made from ``--seed`` with numpy.
+Then the training job's two reads:
+
+- ``restore``: one data-parallel rank's checkpoint shard at real size
+  (Llama-2-7B's fp32 weights and Adam moments over 64 ranks: 1.264 GB, 19
+  blocks of 64 MiB), packed by the port's ``pack_shard`` and laid out as
+  the checkpoint manager saves it (a 3x-replicated hot copy and an RS(3,2)
+  cold copy), restored into device memory by ``restore_shard_device``:
+  healthy twice, with one byte flipped in one hot replica, and with one
+  block's every hot replica corrupt and shards 0 and 3 of every cold-copy
+  block missing (every block rebuilt on the card); every tensor bit-exact;
+- ``dataset``: GPT-2 pretraining records (nanoGPT's block of 1,024 uint16
+  tokens, batches of 12) from a 1 GiB 3x-replicated file through
+  ``DfsRecordSource``, ``make_dataset`` and ``device_iterator``, a few
+  hundred batches, each checked against the source.
+
+Data is made from ``--seed`` with numpy (and with torch generators on the
+card for the checkpoint's state).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import functools
 import json
 import shutil
 import statistics
@@ -76,10 +94,11 @@ import torch
 
 from tpudfs_torch.client.local import DfsError, LocalClient
 from tpudfs_torch.chunkserver.blockstore import BlockStore
-from tpudfs_torch.common import native
-from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c_chunks, crc32c_fold
+from tpudfs_torch.common import ckptpaths, native
+from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c, crc32c_fold
 from tpudfs_torch.common.erasure import encode
 from tpudfs_torch.gpu import host_to_device, u32_to_i64
+from tpudfs_torch.gpu.checkpoint import pack_shard, restore_shard_device
 from tpudfs_torch.gpu.crc32c_cuda import (
     block_crc_device,
     bytes_to_words,
@@ -100,6 +119,12 @@ from tpudfs_torch.gpu.ici_replication import (
     replicated_write_step,
 )
 from tpudfs_torch.gpu.infeed import DfsInfeed
+from tpudfs_torch.gpu.record_source import (
+    DfsRecordSource,
+    EpochSampler,
+    device_iterator,
+    make_dataset,
+)
 from tpudfs_torch.gpu.rs_cuda import (
     coef_bits,
     decode_matrix,
@@ -145,7 +170,10 @@ KERNELS = {
 #: block and the tampered slot); the infeed reads per block, eagerly; the
 #: write group verifies every position's replicas with one chunk-CRC
 #: launch; the EC collectives encode, CRC the sent and received shards, and
-#: decode with runtime matrices.
+#: decode with runtime matrices; the checkpoint restore verifies every full
+#: block with the fused CRC, its unaligned tail block with the chunk CRCs,
+#: and rebuilds every cold-copy block with the GF(2^8) decode; the dataset
+#: infeed reads records on the host and launches nothing.
 PATH_KERNELS = {
     "read_path": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
     "combined": ("crc32c_blocks",),
@@ -153,6 +181,8 @@ PATH_KERNELS = {
     "infeed": ("crc32c_chunks", "crc32c_blocks"),
     "write": ("crc32c_chunks",),
     "ec_collective": ("crc32c_chunks", "gf256_matmul"),
+    "restore": ("crc32c_blocks", "crc32c_chunks", "gf256_matmul"),
+    "dataset": (),
 }
 #: The write phase: 3x replication (BASELINE.json's HA layout) on a
 #: 3-position ring, 4 blocks a position a round.
@@ -208,40 +238,56 @@ def _block_meta(bid, size, locations, crc, **ec) -> dict:
             "original_size": size if ec else 0}
 
 
+def _stores(workdir: Path, n: int) -> tuple[list, dict, dict]:
+    """n chunkserver stores under ``workdir``: (addrs, ``LocalClient``
+    stores, open ``BlockStore`` handles)."""
+    addrs = [f"cs{i}:7000" for i in range(n)]
+    stores = {a: (workdir / f"cs{i}" / "hot", None) for i, a in enumerate(addrs)}
+    handles = {a: BlockStore(hot, cold) for a, (hot, cold) in stores.items()}
+    return addrs, stores, handles
+
+
+def _write_replicated(handles: dict, addrs: list, path: str, data: np.ndarray,
+                     block_size: int, tag: str | None = None) -> dict:
+    """``data`` as a file of ``block_size`` blocks at 3x replication on
+    the first three stores (block i's first replica on store i % 3), each
+    replica with its sidecar CRCs (the native CRC); returns the file's
+    GetFileInfo-shaped meta. Block ids are ``blk_<tag>_<i>``, the tag by
+    default from the path."""
+    tag = tag or path.strip("/").replace("/", "_")
+    blocks = []
+    for i, off in enumerate(range(0, len(data), block_size)):
+        piece = data[off : off + block_size]
+        sums = native.crc32c_chunks(piece)
+        bid = f"blk_{tag}_{i}"
+        locs = [addrs[(i + r) % 3] for r in range(3)]
+        for a in locs:
+            handles[a].write(bid, piece, sums)
+        blocks.append(_block_meta(bid, len(piece), locs,
+                                  crc32c_fold(sums, len(piece),
+                                              CHECKSUM_CHUNK_SIZE)))
+    return {"path": path, "size": len(data), "blocks": blocks}
+
+
 def lay_out(workdir: Path, rng, *, block_size: int, nblocks: int,
             tail_size: int, ec: tuple, lost: tuple) -> tuple:
     """Stores in the chunkserver's format + GetFileInfo-shaped metas.
     Returns (stores, metas, sources): ``sources[path]`` is the file's bytes."""
     k, m = ec
-    addrs = [f"cs{i}:7000" for i in range(max(3, k + m))]
-    stores = {a: (workdir / f"cs{i}" / "hot", None) for i, a in enumerate(addrs)}
-    handles = {a: BlockStore(hot, cold) for a, (hot, cold) in stores.items()}
+    addrs, stores, handles = _stores(workdir, max(3, k + m))
     metas, sources = {}, {}
-
-    def replicated(path: str, data) -> None:
-        blocks = []
-        for i, off in enumerate(range(0, len(data), block_size)):
-            piece = data[off : off + block_size]
-            sums = crc32c_chunks(piece)
-            bid = f"blk_{path.strip('/').replace('/', '_')}_{i}"
-            locs = [addrs[(i + r) % 3] for r in range(3)]
-            for a in locs:
-                handles[a].write(bid, piece, sums)
-            blocks.append(_block_meta(bid, len(piece), locs,
-                                      crc32c_fold(sums, len(piece),
-                                                  CHECKSUM_CHUNK_SIZE)))
-        metas[path] = {"path": path, "size": len(data), "blocks": blocks}
-        sources[path] = data
-
-    replicated("/smoke/big", np.frombuffer(rng.bytes(nblocks * block_size),
-                                           dtype=np.uint8))
-    replicated("/smoke/tail", np.frombuffer(rng.bytes(tail_size), dtype=np.uint8))
+    for path, nbytes in (("/smoke/big", nblocks * block_size),
+                         ("/smoke/tail", tail_size)):
+        sources[path] = np.frombuffer(rng.bytes(nbytes), dtype=np.uint8)
+        metas[path] = _write_replicated(handles, addrs, path, sources[path],
+                                       block_size)
     ecdata = rng.bytes(block_size)
     shards = encode(ecdata, k, m)
     for i, shard in enumerate(shards):
         if i not in lost:
             handles[addrs[i]].write("blk_smoke_ec_0", shard)
-    crc = crc32c_fold(crc32c_chunks(ecdata), block_size, CHECKSUM_CHUNK_SIZE)
+    crc = crc32c_fold(native.crc32c_chunks(ecdata), block_size,
+                      CHECKSUM_CHUNK_SIZE)
     metas["/smoke/ec"] = {"path": "/smoke/ec", "size": block_size, "blocks": [
         _block_meta("blk_smoke_ec_0", block_size, addrs[: k + m], crc, k=k, m=m)
     ]}
@@ -388,13 +434,16 @@ async def _ec_rebuild(client: LocalClient, metas, device) -> dict:
     }
 
 
-def _flip_first_replica(client: LocalClient, block: dict) -> None:
-    """Flip one byte of the block's first replica (a second call undoes it)."""
-    store = client._local_stores[block["locations"][0]][0]
+def _flip_first_replica(client: LocalClient, block: dict,
+                        replica: int = 0) -> None:
+    """Flip one byte of the block's first (or ``replica``-th) replica (a
+    second call undoes it)."""
+    store = client._local_stores[block["locations"][replica]][0]
+    pos = min(12345, block["size"] - 1)
     with open(store.block_path(block["block_id"]), "r+b") as f:
-        f.seek(12345)
+        f.seek(pos)
         byte = f.read(1)
-        f.seek(12345)
+        f.seek(pos)
         f.write(bytes([byte[0] ^ 0x40]))
 
 
@@ -883,6 +932,277 @@ def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
             "launches": total}
 
 
+# ------------------------------------------------------- phase: restore
+
+#: One data-parallel rank's checkpoint shard at real size: Llama-2-7B's
+#: 6.74e9 parameters (Touvron et al. 2023, Table 1) as fp32 master weights
+#: plus Adam's two moments, K = 12 bytes a parameter (ZeRO, Rajbhandari et
+#: al. 2020, section 3.1), partitioned over 64 data-parallel ranks.
+LLAMA2_7B_PARAMS = 6_740_000_000
+CKPT_RANKS = 64
+CKPT_PARAMS = LLAMA2_7B_PARAMS // CKPT_RANKS  # 105,312,500: 1.264 GB a rank
+#: The checkpoint manager's default cold copy (``CheckpointManager(ec=)``)
+#: and the shards the degraded run loses from every block of it.
+CKPT_EC = (3, 2)
+CKPT_LOST = (0, 3)
+
+
+def ckpt_state(n: int, seed: int, device: torch.device) -> dict:
+    """One rank's state, made on ``device`` from ``seed``: flat fp32
+    ``params``, ``adam_m`` and ``adam_v`` of ``n`` elements each, an int64
+    ``step`` and an int8 ``flags`` tensor of 13. The last two are not
+    4-byte dtypes, so they take the host bounce, and ``step``, last in name
+    order, ends the payload off a 512-byte boundary."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tree = {name: torch.randn(n, generator=gen, device=device)
+            for name in ("params", "adam_m", "adam_v")}
+    tree["flags"] = torch.randint(-128, 128, (13,), dtype=torch.int8,
+                                  generator=gen, device=device)
+    tree["step"] = torch.tensor(1000 + seed, dtype=torch.int64, device=device)
+    return tree
+
+
+def lay_out_shard(workdir: Path, payload: np.ndarray, *, block_size: int,
+                  hot: str, cold: str, ec: tuple = CKPT_EC) -> tuple:
+    """A shard payload as the checkpoint manager saves it: a 3x-replicated
+    hot copy at ``hot`` and an RS(k,m) cold copy at ``cold`` (the host
+    encoder; shard j of every block on store j). Returns (stores, metas)."""
+    k, m = ec
+    addrs, stores, handles = _stores(workdir, max(3, k + m))
+    metas = {hot: _write_replicated(handles, addrs, hot, payload, block_size,
+                                   tag="ckpt_hot")}
+    blocks = []
+    for i, off in enumerate(range(0, len(payload), block_size)):
+        piece = payload[off : off + block_size]
+        bid = f"blk_ckpt_ec_{i}"
+        for j, shard in enumerate(encode(piece, k, m)):
+            handles[addrs[j]].write(bid, shard, native.crc32c_chunks(shard))
+        crc = metas[hot]["blocks"][i]["checksum_crc32c"]
+        blocks.append(_block_meta(bid, len(piece), addrs[: k + m], crc,
+                                  k=k, m=m))
+    metas[cold] = {"path": cold, "size": len(payload), "blocks": blocks}
+    return stores, metas
+
+
+def _drop_shards(client: LocalClient, meta: dict, lost: tuple) -> None:
+    """Delete shards ``lost`` of every block of an EC file (block and
+    sidecar)."""
+    for block in meta["blocks"]:
+        for j in lost:
+            store = client._local_stores[block["locations"][j]][0]
+            path = store.block_path(block["block_id"])
+            path.unlink()
+            path.with_name(path.name + ".meta").unlink()
+
+
+def _check_restored(out: dict, tree: dict, device: torch.device) -> None:
+    """Every tensor bit-exact, of its dtype and shape, on ``device``; the
+    4-byte ones views of one word stream (no copy made)."""
+    if sorted(out) != sorted(tree):
+        raise AssertionError(f"restore: tensors {sorted(out)}")
+    stream = set()
+    for name, want in tree.items():
+        got = out[name]
+        if (got.dtype, got.shape, got.device) != (want.dtype, want.shape,
+                                                  device):
+            raise AssertionError(f"restore: {name} is {got.dtype} "
+                                 f"{tuple(got.shape)} on {got.device}")
+        if not torch.equal(got.reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"restore: {name} bytes differ")
+        if want.element_size() == 4:
+            stream.add(got.untyped_storage().data_ptr())
+    if len(stream) != 1:
+        raise AssertionError("restore: the 4-byte tensors are not views of "
+                             "one word stream")
+
+
+async def _restore_run(reader: HbmReader, client: LocalClient, spec: dict,
+                       device: torch.device, tree: dict) -> dict:
+    """One ``restore_shard_device`` call, timed from the call to the last
+    tensor (ended by a synchronize), then checked against ``tree``."""
+    stats = {"degraded_shard_reads": 0}
+    stage = dict.fromkeys(("read", "combined_crc", "assemble", "bounce"), 0.0)
+    rereads, before = reader.rereads, launches()
+    sync(device)
+    t0 = time.perf_counter()
+    out = await restore_shard_device(reader, client, spec, device, stats,
+                                     stage_s=stage)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    _check_restored(out, tree, device)
+    return {"seconds": seconds, "gbps": spec["size"] / seconds / 1e9,
+            "stage_s": stage, "rereads": reader.rereads - rereads,
+            "degraded_shard_reads": stats["degraded_shard_reads"],
+            "launches": _delta(launches(), before)}
+
+
+def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
+                 block_size: int = 64 * MiB, seed: int = 0,
+                 workdir: Path | None = None) -> dict:
+    """The ``restore`` phase: one rank's checkpoint shard (``ckpt_state``,
+    packed by ``pack_shard``) laid out as the manager saves it, restored
+    into ``device`` memory by ``restore_shard_device`` on a
+    ``LocalClient``: (a) healthy, twice (the second reported); (b) with one
+    byte flipped in one hot replica of one block (re-read, no fallback);
+    (c) with every hot replica of that block corrupted and shards 0 and 3 of
+    every cold-copy block missing (the whole shard from the cold copy, every
+    block rebuilt on the device). Raises on any difference; the stores are
+    removed at the end."""
+    root = Path(workdir) if workdir is not None else REPO / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_restore_", dir=root))
+    try:
+        t0 = time.perf_counter()
+        tree = ckpt_state(params, seed + 3, device)
+        payload, specs = pack_shard(tree)
+        crc = crc32c(payload)  # as CheckpointManager.save_shard computes it
+        pack_s = time.perf_counter() - t0
+        base = "/smoke/ckpt"
+        hot = ckptpaths.shard_data_path(base, 1, 0)
+        cold = ckptpaths.shard_ec_path(base, 1, 0)
+        t0 = time.perf_counter()
+        stores, metas = lay_out_shard(
+            tmp, np.frombuffer(payload, dtype=np.uint8),
+            block_size=block_size, hot=hot, cold=cold)
+        setup_s = time.perf_counter() - t0
+        spec = {"shard": 0, "path": hot, "ec_path": cold,
+                "size": len(payload), "crc32c": crc,
+                "tensors": [t.to_dict() for t in specs]}
+        del payload
+        client = LocalClient(stores, metas)
+        reader = HbmReader(client, [device])
+        blocks = metas[hot]["blocks"]
+        mid = blocks[len(blocks) // 2]
+        reset_launches()
+        runs = [asyncio.run(_restore_run(reader, client, spec, device, tree))
+                for _ in range(2)]
+        _flip_first_replica(client, mid)
+        try:
+            flipped = asyncio.run(_restore_run(reader, client, spec, device,
+                                               tree))
+        finally:
+            _flip_first_replica(client, mid)
+        if flipped["rereads"] != 1 or flipped["degraded_shard_reads"]:
+            raise AssertionError(f"restore with a flipped replica: {flipped}")
+        for replica in range(3):
+            _flip_first_replica(client, mid, replica)
+        _drop_shards(client, metas[cold], CKPT_LOST)
+        degraded = asyncio.run(_restore_run(reader, client, spec, device,
+                                            tree))
+        rebuilt = degraded["launches"]["gf256_matmul"]
+        if degraded["degraded_shard_reads"] != 1 or \
+                rebuilt != len(blocks) * (device.type == "cuda"):
+            raise AssertionError(f"degraded restore: {degraded}")
+        counts = launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    reduced = [] if params == CKPT_PARAMS else [
+        f"params_per_rank {params} of {CKPT_PARAMS}"]
+    if block_size != 64 * MiB:
+        reduced.append(f"block_size {block_size} of {64 * MiB}")
+    return {"phase": "restore", "device": str(device), "seed": seed,
+            "shard": "Llama-2-7B (6.74e9 params) fp32 weights + Adam m, v "
+                     "(12 B/param), 1 of 64 data-parallel ranks",
+            "states": "flat: params, adam_m, adam_v one tensor each",
+            "params_per_rank": params, "reduced": reduced,
+            "tensors": {t["name"]: [t["dtype"], t["shape"]] for t in
+                        spec["tensors"]},
+            "payload_bytes": spec["size"], "block_size": block_size,
+            "blocks": len(blocks), "tail_block_bytes": blocks[-1]["size"],
+            "hot_replicas": 3, "ec": list(CKPT_EC), "ec_lost": list(CKPT_LOST),
+            "pack_s": pack_s, "setup_s": setup_s, **runs[1],
+            "first_run": runs[0], "flipped": flipped, "degraded": degraded,
+            "degraded_gbps": degraded["gbps"], "exact": True,
+            "launches": counts}
+
+
+# ------------------------------------------------------- phase: dataset
+
+#: nanoGPT's GPT-2 pretraining read (``config/train_gpt2.py``): blocks of
+#: 1,024 tokens in batches of 12, tokens stored as uint16 as in its
+#: ``train.bin``; one record is one block, 2,048 bytes.
+GPT2_BLOCK_TOKENS = 1024
+GPT2_BATCH = 12
+GPT2_VOCAB = 50257
+
+
+def dataset_path(device: torch.device, *, file_bytes: int = 1 << 30,
+                 block_size: int = 64 * MiB, batches: int = 300,
+                 seed: int = 0, num_workers: int = 2,
+                 workdir: Path | None = None) -> dict:
+    """The ``dataset`` phase: a 3x-replicated file of uint16 GPT-2 tokens
+    read as 2,048-byte records through ``DfsRecordSource`` on a
+    ``LocalClient``, ``make_dataset(batch_size=12, shuffle_seed=seed)``
+    (``num_workers`` spawned loader workers) and ``device_iterator`` onto
+    ``device``, for ``batches`` batches; then every landed batch checked
+    against the source records of the sampler's order. The rates count the
+    batches after the first (which pays the workers' start)."""
+    root = Path(workdir) if workdir is not None else REPO / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dataset_", dir=root))
+    try:
+        t0 = time.perf_counter()
+        tokens = np.random.default_rng(seed + 4).integers(
+            0, GPT2_VOCAB, file_bytes // 2, dtype=np.uint16)
+        addrs, stores, handles = _stores(tmp, 3)
+        path = "/smoke/tokens"
+        metas = {path: _write_replicated(handles, addrs, path,
+                                        tokens.view(np.uint8), block_size)}
+        setup_s = time.perf_counter() - t0
+        record = GPT2_BLOCK_TOKENS * tokens.itemsize
+        source = DfsRecordSource(functools.partial(LocalClient, stores, metas),
+                                 [path], record, dtype="uint16")
+        try:
+            loader = make_dataset(
+                source, batch_size=GPT2_BATCH, shuffle_seed=seed,
+                device=device, num_workers=num_workers)
+            landed, first_s = [], None
+            it = device_iterator(loader, device)
+            sync(device)
+            t0 = time.perf_counter()
+            try:
+                for batch in it:
+                    landed.append(batch)
+                    if first_s is None:
+                        sync(device)
+                        first_s = time.perf_counter() - t0
+                    if len(landed) == batches:
+                        break
+            finally:
+                it.close()
+            sync(device)
+            seconds = time.perf_counter() - t0
+            nrecords = len(source)
+        finally:
+            source.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(landed) != batches:
+        raise AssertionError(f"dataset: {len(landed)} of {batches} batches")
+    order = EpochSampler(nrecords, seed=seed)
+    want_idx = np.fromiter(order, dtype=np.int64,
+                           count=nrecords)[: batches * GPT2_BATCH]
+    records = tokens.reshape(-1, GPT2_BLOCK_TOKENS)
+    for i, batch in enumerate(landed):
+        want = records[want_idx[i * GPT2_BATCH : (i + 1) * GPT2_BATCH]]
+        if batch.device != device or batch.dtype != torch.uint16 or \
+                not np.array_equal(batch.cpu().numpy(), want):
+            raise AssertionError(f"dataset: batch {i} differs")
+    steady = seconds - first_s
+    steady_records = (batches - 1) * GPT2_BATCH
+    return {"phase": "dataset", "device": str(device), "seed": seed,
+            "source": "nanoGPT config/train_gpt2.py: block_size 1024, "
+                      "batch_size 12, uint16 tokens",
+            "file_bytes": file_bytes, "block_size": block_size,
+            "record_bytes": record, "records": nrecords,
+            "batch_size": GPT2_BATCH, "batches": batches,
+            "num_workers": num_workers, "setup_s": setup_s,
+            "first_batch_s": first_s, "seconds": seconds,
+            "records_per_s": steady_records / steady,
+            "gbps": steady_records * record / steady / 1e9, "exact": True}
+
+
 # ---------------------------------------------------------- card phases
 
 
@@ -986,6 +1306,14 @@ def _time_ms(fn, device, held: bool = True, **runs) -> float:
         return kernels.time_ms(fn, held=held, **runs)
 
 
+def _blocks_bytes(c: int, nblocks: int) -> int:
+    """Bytes the fused CRC must move for ``nblocks`` blocks of ``c`` chunks:
+    the words, WCONTRIB, the operator rows it reads (M^0..M^31 and one
+    M^(32*2^q) per bit of the last tile index), one output word each."""
+    return (nblocks * c * 512 + 32 * 128 * 4
+            + (32 + (-(-c // 32) - 1).bit_length()) * 32 * 4 + 4 * nblocks)
+
+
 def _kernel_times(device: torch.device, rng, counts: dict,
                   block_size: int) -> tuple[dict, list]:
     """Kernel and plain times at the main path's shapes: one 64 MiB block's
@@ -1009,11 +1337,6 @@ def _kernel_times(device: torch.device, rng, counts: dict,
     blocks_err = _same(block_crc_device(words).reshape(1),
                        crc32c_blocks_plain(words, 1, wcontrib, inv_contrib(),
                                            fold))
-    # Words, WCONTRIB, the operator rows the kernel reads (M^0..M^31 and
-    # one M^(32*2^q) per bit of the last tile index), one output word each.
-    def blocks_bytes(nblocks: int) -> int:
-        return (nblocks * c * 512 + 32 * 128 * 4
-                + (32 + (-(-c // 32) - 1).bit_length()) * 32 * 4 + 4 * nblocks)
 
     # The combiner's round: COMBINED_BATCH blocks in one launch.
     nb = COMBINED_BATCH
@@ -1057,11 +1380,11 @@ def _kernel_times(device: torch.device, rng, counts: dict,
         "crc32c_blocks": {"chunks": c, "nblocks": 1,
                           "block_crc_ms": block_crc_ms,
                           "call_ms": block_crc_call, "plain_ms": blocks_plain,
-                          "bound_ms": bound(blocks_bytes(1))},
+                          "bound_ms": bound(_blocks_bytes(c, 1))},
         f"crc32c_blocks_{nb}x": {"chunks": nb * c, "nblocks": nb,
                                  "ms": round_ms, "call_ms": round_call,
                                  "plain_ms": round_plain,
-                                 "bound_ms": bound(blocks_bytes(nb))},
+                                 "bound_ms": bound(_blocks_bytes(c, nb))},
         "gf256_decode_6_3": {"words": w, "ms": dec_ms, "call_ms": dec_call,
                              "plain_ms": dec_plain, "bound_ms": bound(dec_bytes)},
         "gf256_encode_6_3": {"words": w, "ms": enc_ms, "call_ms": enc_call,
@@ -1075,11 +1398,11 @@ def _kernel_times(device: torch.device, rng, counts: dict,
          "bound_ms": bound(crc_bytes)},
         {"name": "crc32c_blocks", "launches": counts["crc32c_blocks"],
          "max_abs_err": blocks_err, "ms": block_crc_ms,
-         "plain_ms": blocks_plain, "bound_ms": bound(blocks_bytes(1)),
+         "plain_ms": blocks_plain, "bound_ms": bound(_blocks_bytes(c, 1)),
          # The combiner's shape (the row's own numbers are one block's).
          f"at_{nb}_blocks": {"max_abs_err": round_err, "ms": round_ms,
                              "plain_ms": round_plain,
-                             "bound_ms": bound(blocks_bytes(nb))}},
+                             "bound_ms": bound(_blocks_bytes(c, nb))}},
         {"name": "gf256_matmul", "launches": counts["gf256_matmul"],
          "max_abs_err": dec_err, "ms": dec_ms, "plain_ms": dec_plain,
          "bound_ms": bound(dec_bytes)},
@@ -1155,6 +1478,39 @@ def _write_kernel_times(device, rng, by_path, write, ec, phase, table) -> None:
     rows["gf256_matmul"]["at_gather_decode"] = decode_row
 
 
+def _restore_kernel_times(device, rng, restore, phase, table) -> None:
+    """Both kernels at the restore's shapes, added to the kernel_times
+    phase and, nested, to the table's rows, each with the restore's
+    launches: the fused CRC of one block (one eager launch a full block)
+    and the RS(k,m) decode that rebuilds one cold-copy block from k
+    survivors (a (k, k) matrix at one block's padded shard width; its bound
+    counts k rows in and k out)."""
+    c = restore["block_size"] // CHECKSUM_CHUNK_SIZE
+    words = _device_words(rng, (c, 128), device)
+    wcontrib = host_to_device(word_contrib_table(), device)
+    fold = fold_table_device(c, device)
+    crc = _timed_row(
+        device, lambda: crc32c_blocks_device(words, 1),
+        lambda: crc32c_blocks_plain(words, 1, wcontrib, inv_contrib(), fold),
+        _blocks_bytes(c, 1), restore["launches"]["crc32c_blocks"], chunks=c,
+        nblocks=1)
+    del words
+    k, m = restore["ec"]
+    w = pad_shard_len(-(-restore["block_size"] // k)) // 4
+    present = tuple(i for i in range(k + m) if i not in restore["ec_lost"])
+    dec = matrix_bits_device(decode_matrix(k, m, present), device)
+    shards = _device_words(rng, (k, w), device)
+    decode = _timed_row(
+        device, lambda: gf_matmul_words(shards, dec),
+        lambda: gf_rows_plain(shards, dec), 2 * k * w * 4 + dec.numel() * 4,
+        restore["launches"]["gf256_matmul"], words=w, matrix=[k, k])
+    phase["crc32c_blocks_restore"] = crc
+    phase[f"gf256_restore_decode_{k}_{m}"] = decode
+    rows = {row["name"]: row for row in table}
+    rows["crc32c_blocks"]["at_restore_block"] = crc
+    rows["gf256_matmul"]["at_restore_decode"] = decode
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1183,8 +1539,13 @@ def main(argv=None) -> int:
     emit(write)
     ec = ec_collective(device, seed=args.seed)
     emit(ec)
+    restore = restore_path(device, seed=args.seed)
+    emit(restore)
+    dataset = _counted(lambda: dataset_path(device, seed=args.seed))
+    emit(dataset)
     by_path = {"read_path": result["launches"],
-               **{p["phase"]: p["launches"] for p in batched + [write, ec]}}
+               **{p["phase"]: p["launches"]
+                  for p in batched + [write, ec, restore, dataset]}}
     for path, counts in by_path.items():
         never = [k for k in PATH_KERNELS[path] if not counts[k]]
         if never:
@@ -1192,6 +1553,7 @@ def main(argv=None) -> int:
     counts = {name: sum(c[name] for c in by_path.values()) for name in KERNELS}
     phase, table = _kernel_times(device, rng, counts, result["block_size"])
     _write_kernel_times(device, rng, by_path, write, ec, phase, table)
+    _restore_kernel_times(device, rng, restore, phase, table)
     emit(phase)
     emit({"phase": "kernels", "launches": counts, "by_path": by_path})
     emit({"kernels": table})

@@ -422,3 +422,100 @@ def test_ring_across_cards_matches_cpu(cuda_device):
         for a, b in zip(out["cuda"][i], out["cpu"][i]):
             np.testing.assert_array_equal(a, b)
     assert out["cuda"][3:] == out["cpu"][3:] == ([True] * (2 * n), n, n)
+
+
+# ------------------------------------------------------ checkpoint restore
+
+
+def _shard_layout(tmp_path, seed: int):
+    """A small checkpoint shard (``chip_smoke.ckpt_state``: three fp32
+    states, an int64 step, an int8 tail) laid out as the manager saves it
+    (3x hot copy + RS(3,2) cold copy) in 64 KiB blocks; (client, spec, tree
+    on the CPU, metas)."""
+    import chip_smoke
+    from tpudfs_torch.common.checksum import crc32c
+    from tpudfs_torch.gpu.checkpoint import pack_shard
+
+    tree = chip_smoke.ckpt_state(30_011, seed, CPU)
+    payload, specs = pack_shard(tree)
+    stores, metas = chip_smoke.lay_out_shard(
+        tmp_path, np.frombuffer(payload, dtype=np.uint8),
+        block_size=64 * 1024, hot="/c/hot", cold="/c/ec")
+    spec = {"shard": 0, "path": "/c/hot", "ec_path": "/c/ec",
+            "size": len(payload), "crc32c": crc32c(payload),
+            "tensors": [t.to_dict() for t in specs]}
+    return LocalClient(stores, metas), spec, tree, metas
+
+
+def _restore(client, spec, device):
+    from tpudfs_torch.gpu.checkpoint import restore_shard_device
+
+    stats = {"degraded_shard_reads": 0}
+    out = asyncio.run(restore_shard_device(
+        HbmReader(client, [device]), client, spec, device, stats))
+    return out, stats["degraded_shard_reads"]
+
+
+@pytest.mark.parametrize("degraded", [False, True])
+def test_restore_shard_device_on_card_matches_cpu(cuda_device, tmp_path,
+                                                  degraded):
+    import chip_smoke
+
+    client, spec, tree, metas = _shard_layout(tmp_path, seed=61)
+    if degraded:
+        block = metas["/c/hot"]["blocks"][2]
+        for replica in range(3):
+            chip_smoke._flip_first_replica(client, block, replica)
+        chip_smoke._drop_shards(client, metas["/c/ec"], (0, 3))
+    before = {k: w.launches for k, w in (
+        ("blocks", crc32c_cuda.crc32c_blocks_device),
+        ("chunks", crc32c_cuda.crc32c_chunks_device),
+        ("gf", rs_cuda.gf_matmul_words))}
+    on_card, card_degraded = _restore(client, spec, cuda_device)
+    on_cpu, cpu_degraded = _restore(client, spec, CPU)
+    assert card_degraded == cpu_degraded == int(degraded)
+    nblocks = len(metas["/c/hot"]["blocks"])
+    assert crc32c_cuda.crc32c_blocks_device.launches > before["blocks"]
+    assert crc32c_cuda.crc32c_chunks_device.launches > before["chunks"]
+    assert rs_cuda.gf_matmul_words.launches - before["gf"] == \
+        (nblocks if degraded else 0)
+    for name, want in tree.items():
+        assert on_card[name].device == cuda_device
+        for got in (on_card[name].cpu(), on_cpu[name]):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert torch.equal(got.reshape(-1).view(torch.uint8),
+                               want.reshape(-1).view(torch.uint8)), name
+
+
+def test_rs_3_2_decode_at_block_width_matches_plain(cuda_device):
+    """The cold copy's rebuild: RS(3,2) with shards 0 and 3 lost, a 3x3
+    matrix at one 64 MiB block's padded shard width (5,592,416 words)."""
+    present = (1, 2, 4)
+    w = rs_cuda.pad_shard_len(-(-(64 << 20) // 3)) // 4
+    assert w == 5_592_416
+    dec = rs_cuda.matrix_bits_device(rs_cuda.decode_matrix(3, 2, present),
+                                     cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    words = torch.randint(-(1 << 31), 1 << 31, (3, w), dtype=torch.int32,
+                          device=cuda_device, generator=gen).view(torch.uint32)
+    before = rs_cuda.gf_matmul_words.launches
+    got = rs_cuda.gf_matmul_words(words, dec)
+    assert rs_cuda.gf_matmul_words.launches == before + 1
+    want = rs_cuda.gf_rows_plain(words, dec)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_restore_and_dataset_phases_on_card(cuda_device, tmp_path):
+    import chip_smoke
+
+    r = chip_smoke.restore_path(cuda_device, params=200_003,
+                                block_size=1 << 20, workdir=tmp_path)
+    assert r["exact"] and r["degraded_shard_reads"] == 0
+    assert r["flipped"]["rereads"] == 1
+    assert r["degraded"]["degraded_shard_reads"] == 1
+    assert all(r["launches"][k] > 0 for k in chip_smoke.PATH_KERNELS["restore"])
+    d = chip_smoke.dataset_path(cuda_device, file_bytes=8 << 20,
+                                block_size=1 << 20, batches=30,
+                                num_workers=0, workdir=tmp_path)
+    assert d["exact"] and d["batches"] == 30
+    assert list(tmp_path.iterdir()) == []

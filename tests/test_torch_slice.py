@@ -3,10 +3,11 @@ read path (replicated, tail and degraded RS(6,3) blocks, one confirm, a
 tampered replica flagged and recovered), its batched phases (the read
 combiner, the native sweep pump, the infeed) and its write side (the
 collective write group with a tampered round, the RS(6,3) scatter and
-gather on a 9-position ring, the write step's parity), the rule that the
-port and the smoke script import neither jax nor ``tpudfs`` and load no
-library the JAX package built, and the script's refusal to run without a
-card."""
+gather on a 9-position ring, the write step's parity), its checkpoint
+restore (healthy, a flipped replica, the whole shard from the RS(3,2) cold
+copy) and dataset infeed, the rule that the port and the smoke script
+import neither jax nor ``tpudfs`` and load no library the JAX package
+built, and the script's refusal to run without a card."""
 
 import ast
 import asyncio
@@ -21,10 +22,12 @@ import torch
 
 import chip_smoke
 from tpudfs_torch.client.local import LocalClient
+from tpudfs_torch.gpu.checkpoint import CheckpointManager
 from tpudfs_torch.gpu.hbm_reader import HbmReader
 from tpudfs_torch.gpu.ici_replication import make_mesh
 from tpudfs_torch.gpu.infeed import DfsInfeed
 from tpudfs_torch.gpu.read_combiner import ReadCombiner
+from tpudfs_torch.gpu.record_source import device_iterator, make_dataset
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -88,6 +91,47 @@ def test_write_side_small_on_cpu(tmp_path):
     assert list(tmp_path.iterdir()) == []  # the stores are removed
 
 
+def test_restore_and_dataset_small_on_cpu(tmp_path):
+    r = chip_smoke.restore_path(CPU, params=40_000, block_size=65536,
+                                workdir=tmp_path)
+    # 3 x 160,000 B of fp32 states (aligned to 160,256), 13 int8 flags
+    # (512) and the int64 step: 8 blocks, the last not 512-aligned.
+    assert r["payload_bytes"] == 3 * 160_256 + 512 + 8
+    assert (r["blocks"], r["tail_block_bytes"]) == (8, 481_288 - 7 * 65536)
+    assert r["tensors"]["step"] == ["<i8", []]
+    assert r["reduced"] == ["params_per_rank 40000 of 105312500",
+                            "block_size 65536 of 67108864"]
+    assert (r["rereads"], r["degraded_shard_reads"]) == (0, 0)
+    assert (r["flipped"]["rereads"], r["flipped"]["degraded_shard_reads"]) \
+        == (1, 0)
+    assert r["degraded"]["degraded_shard_reads"] == 1
+    assert set(r["stage_s"]) == {"read", "combined_crc", "assemble",
+                                 "bounce"}
+    assert r["exact"] and r["degraded_gbps"] > 0
+    no_launch = {"crc32c_chunks": 0, "crc32c_blocks": 0, "gf256_matmul": 0}
+    assert r["launches"] == no_launch
+    d = chip_smoke.dataset_path(CPU, file_bytes=1 << 20, block_size=65536,
+                                batches=20, num_workers=0, workdir=tmp_path)
+    assert (d["records"], d["batches"], d["record_bytes"]) == (512, 20, 2048)
+    assert d["exact"] and d["records_per_s"] > 0
+    assert list(tmp_path.iterdir()) == []  # the stores are removed
+
+
+def test_restore_phase_rejects_a_wrong_tensor(tmp_path, monkeypatch):
+    """The restore phase fails loudly when a restored tensor differs."""
+    real = chip_smoke.restore_shard_device
+
+    async def flip(*args, **kwargs):
+        out = await real(*args, **kwargs)
+        out["flags"] = out["flags"] ^ 1
+        return out
+
+    monkeypatch.setattr(chip_smoke, "restore_shard_device", flip)
+    with pytest.raises(AssertionError, match="flags"):
+        chip_smoke.restore_path(CPU, params=4000, block_size=8192,
+                                workdir=tmp_path)
+
+
 def test_read_path_rejects_a_broken_layout(tmp_path, monkeypatch):
     """The smoke fails loudly when a read comes back wrong."""
     real = chip_smoke.device_array_to_bytes
@@ -113,14 +157,21 @@ chip_smoke.read_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
                      block_size=16384, nblocks=2, tail_size=5000)
 chip_smoke.write_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
                       block_size=4096, nblocks=1)
+import tpudfs_torch.gpu.torch_data, tpudfs_torch.gpu.wds
+chip_smoke.restore_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
+                        params=3000, block_size=4096)
+chip_smoke.dataset_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
+                        file_bytes=131072, block_size=16384, batches=3,
+                        num_workers=0)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "tpudfs" or m.startswith("tpudfs."))
 assert not bad, bad
 for m in ("hbm_reader", "read_combiner", "infeed", "ici_replication",
-          "write_group"):
+          "write_group", "checkpoint", "record_source", "torch_data", "wds"):
     assert "tpudfs_torch.gpu." + m in sys.modules, m
 assert "tpudfs_torch.common.native" in sys.modules
+assert "tpudfs_torch.common.ckptpaths" in sys.modules
 # The block I/O engine is the port's own build, not the JAX package's.
 maps = Path("/proc/self/maps").read_text()
 assert "build/tpudfs_torch/libtpudfs_blockio-" in maps
@@ -148,7 +199,9 @@ def test_port_sources_name_no_jax_or_tpudfs_import():
     files = sorted((REPO / "tpudfs_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 15
     for name in ("common/native.py", "gpu/read_combiner.py", "gpu/infeed.py",
-                 "gpu/ici_replication.py", "gpu/write_group.py"):
+                 "gpu/ici_replication.py", "gpu/write_group.py",
+                 "common/ckptpaths.py", "gpu/checkpoint.py",
+                 "gpu/record_source.py", "gpu/torch_data.py", "gpu/wds.py"):
         assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):
@@ -179,6 +232,7 @@ def test_entry_points_default_to_cuda(tmp_path):
         assert HbmReader(client).devices[0].type == "cuda"
         assert ReadCombiner(client).device.type == "cuda"
         assert DfsInfeed(client, []).reader.devices[0].type == "cuda"
+        assert list(device_iterator([torch.zeros(2)]))[0].is_cuda
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()
@@ -191,6 +245,17 @@ def test_entry_points_default_to_cuda(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             asyncio.run(HbmReader(client, [CPU]).sweep_metas_to_device(
                 [], torch.device("cuda")))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            device_iterator([])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            device_iterator([], "cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_dataset(range(4), batch_size=2)
+        mgr = CheckpointManager(client, "/b", num_shards=1,
+                                reader=HbmReader(client, [CPU]))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            asyncio.run(mgr.restore(device="cuda"))
     assert HbmReader(client, [CPU]).devices == [CPU]
     assert ReadCombiner(client, CPU).device == CPU
     assert DfsInfeed(client, [], [CPU]).reader.devices == [CPU]
+    assert list(device_iterator([torch.zeros(2)], CPU))[0].device == CPU

@@ -9,7 +9,9 @@ disk. :class:`LocalClient` is that reader with the metadata handed in: the
 "checksum_crc32c", "ec_data_shards", "ec_parity_shards",
 "original_size"}]}``). It exposes exactly the interface
 :class:`tpudfs_torch.gpu.hbm_reader.HbmReader` duck-types, which the
-reference ``tpudfs.client.Client`` exposes as well.
+reference ``tpudfs.client.Client`` exposes as well, and the range read
+against cached metadata (``read_meta_range``) that the record and WebDataset
+sources call.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import asyncio
 import logging
 
 from tpudfs_torch.chunkserver.blockstore import BlockStore
+from tpudfs_torch.common.erasure import decode as ec_decode
 
 logger = logging.getLogger(__name__)
 
@@ -120,3 +123,45 @@ class LocalClient:
                                           verify=local_verify)
 
         return list(await asyncio.gather(*(fetch(i) for i in range(k + m))))
+
+    async def _read_ec_block(self, block: dict) -> bytes:
+        """A whole EC block: the data shards joined when all are present,
+        else the host RS decode from any k survivors."""
+        k = int(block["ec_data_shards"])
+        m = int(block["ec_parity_shards"])
+        original = int(block.get("original_size") or block.get("size") or 0)
+        shards = await self._read_ec_shards(block)
+        try:
+            return ec_decode(shards, k, m, original)
+        except ValueError as e:
+            raise DfsError(
+                f"EC decode failed for block {block['block_id']}: {e}"
+            ) from None
+
+    async def read_meta_range(self, meta: dict, offset: int,
+                              length: int) -> bytes:
+        """``length`` bytes at ``offset`` of the file ``meta`` describes
+        (the counterpart of the reference client's ``read_meta_range``):
+        each touched replicated block read verified from its first healthy
+        local replica, an EC block decoded whole and sliced. Clipped to the
+        file's end; empty past it."""
+        if offset >= meta["size"] or length <= 0:
+            return b""
+        length = min(length, meta["size"] - offset)
+        parts = []
+        pos = 0
+        for block in meta["blocks"]:
+            bstart, bend = pos, pos + int(block["size"])
+            pos = bend
+            lo, hi = max(offset, bstart), min(offset + length, bend)
+            if lo >= hi:
+                continue
+            if block.get("ec_data_shards"):
+                whole = self._read_ec_block(block)
+                parts.append((whole, lo - bstart, hi - lo))
+            else:
+                parts.append((self._read_block_range(block, lo - bstart,
+                                                     hi - lo), 0, None))
+        got = await asyncio.gather(*(coro for coro, _o, _n in parts))
+        return b"".join(data if n is None else data[o:o + n]
+                        for data, (_c, o, n) in zip(got, parts))

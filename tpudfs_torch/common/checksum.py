@@ -98,13 +98,21 @@ def crc32c_chunks(data, chunk: int = CHECKSUM_CHUNK_SIZE) -> np.ndarray:
     return out
 
 
+#: :func:`crc32c` folds in pieces of this many bytes (a 64 MiB block's
+#: chunk count), so a buffer of any length reuses one cached fold table
+#: instead of building a table as long as itself.
+_CRC_PIECE = 64 << 20
+
+
 def crc32c(data, crc: int = 0) -> int:
     """CRC32C of ``data``, optionally continuing from a previous ``crc``."""
     buf = _as_u8(data)
-    if len(buf) == 0:
-        return crc & 0xFFFFFFFF
-    whole = crc32c_fold(crc32c_chunks(buf), len(buf), CHECKSUM_CHUNK_SIZE)
-    return crc32c_combine(crc, whole, len(buf))
+    for lo in range(0, len(buf), _CRC_PIECE):
+        piece = buf[lo : lo + _CRC_PIECE]
+        whole = crc32c_fold(crc32c_chunks(piece), len(piece),
+                            CHECKSUM_CHUNK_SIZE)
+        crc = crc32c_combine(crc, whole, len(piece))
+    return crc & 0xFFFFFFFF
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Reed-Solomon over GF(2^8), numpy only — the port's own copy of
-``tpudfs/common/erasure.py`` (tables, matrix inverse, generator, encode).
+``tpudfs/common/erasure.py`` (tables, matrix inverse, generator, encode,
+and the host decode of a block from any k shards).
 
 Construction: Vandermonde ``V[r][c] = r**c`` over GF(2^8) (poly 0x11D), made
 systematic by multiplying with the inverse of its top k x k block, so the
@@ -137,3 +138,25 @@ def encode(data, data_shards: int, parity_shards: int) -> list[bytes]:
     return [shards[i].tobytes() for i in range(k)] + [
         parity[i].tobytes() for i in range(m)
     ]
+
+
+def decode(shards: list, data_shards: int, parity_shards: int,
+           original_len: int) -> bytes:
+    """The original data (truncated to ``original_len``) from the ``k + m``
+    shard slots, ``None`` for a missing shard: the data shards themselves
+    when all are present, else the inverse of the generator's rows of the
+    first k survivors applied to them."""
+    k, m = data_shards, parity_shards
+    if len(shards) != k + m:
+        raise ErasureError(f"expected {k + m} shard slots, got {len(shards)}")
+    if all(s is not None for s in shards[:k]):
+        return b"".join(shards[:k])[:original_len]
+    present = [i for i, s in enumerate(shards) if s is not None][:k]
+    if len(present) < k:
+        raise ErasureError(f"need at least {k} shards, have {len(present)}")
+    if len({len(shards[i]) for i in present}) != 1:
+        raise ErasureError("present shards have differing lengths")
+    avail = np.stack([np.frombuffer(shards[i], dtype=np.uint8)
+                      for i in present])
+    data = _gf_matmul(_matrix_invert(encode_matrix(k, m)[present]), avail)
+    return data.tobytes()[:original_len]
