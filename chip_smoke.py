@@ -13,8 +13,8 @@ main path's shapes, and checks every byte that comes out.
 Output (stdout): the card's ``nvidia-smi`` name and power limit, one JSON
 line per phase (``device``, ``build``, ``kernels_vs_plain``, ``read_path``,
 ``ec_rebuild``, ``combined``, ``sweep``, ``infeed``, ``write``,
-``ec_collective``, ``restore``, ``dataset``, ``kernel_times``,
-``kernels``), the kernel table
+``ec_collective``, ``entry``, ``dryrun``, ``restore``, ``dataset``,
+``kernel_times``, ``kernels``), the kernel table
 ``{"kernels": [...]}`` (each row at the read path's shape, with the write
 side's shapes nested in it), and last
 ``{"ok": true, "device": {...}}``. Any mismatch raises: the run exits
@@ -55,6 +55,24 @@ enough of them, else all to ``cuda:0``; each phase prints its mapping):
   position over a 9-position ring, the gather healthy and around position
   4 with its rows overwritten; and ``replicated_write_step(ec=(6,3))`` on
   the 3-ring against the host encoder.
+
+Then the entry points of ``tpudfs_torch.graft_entry``, each phase
+with the launch counts reset just before it and read just after:
+
+- ``entry``: ``entry(chunks=131_076)``'s step, one 64 MiB block (the
+  smallest multiple of 6 chunks that holds it): its chunk CRCs against the
+  expected ones, its RS(6,3) parity against the host encoder, one write
+  ack from the 1-position ring; one call with a poisoned expected CRC must
+  fail ``crc_ok`` and ``write_ok``; then the step's time;
+- ``dryrun``: ``dryrun_multichip(8)`` and ``dryrun_multichip(9)`` at one
+  64 MiB block a position (the data made on the device): the replicated
+  write step with RS(6,3) parity, the RS(5,3) / RS(6,3) scatter and the
+  degraded gather around position 0 with its shards garbage (every
+  position's words back bit-exact), and the 2x4 / 3x3 ``(dcn, ici)`` pod
+  leg's chain and scatter, each leg timed; one more run of each size
+  under ``torch.profiler`` gives each leg's device-busy share from its
+  trace. The live collective-write leg needs the JAX package's
+  chunkserver and runs in the CPU tests only.
 
 Then the training job's two reads:
 
@@ -97,7 +115,7 @@ from tpudfs_torch.chunkserver.blockstore import BlockStore
 from tpudfs_torch.common import ckptpaths, native
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c, crc32c_fold
 from tpudfs_torch.common.erasure import encode
-from tpudfs_torch.gpu import host_to_device, u32_to_i64
+from tpudfs_torch.gpu import host_to_device, u32_to_i64, u32_to_numpy
 from tpudfs_torch.gpu.checkpoint import pack_shard, restore_shard_device
 from tpudfs_torch.gpu.crc32c_cuda import (
     block_crc_device,
@@ -135,6 +153,15 @@ from tpudfs_torch.gpu.rs_cuda import (
     rs_decode_device,
 )
 from tpudfs_torch.gpu.write_group import IciWriteGroup
+from tpudfs_torch.graft_entry import (
+    device_words,
+    dryrun_multichip,
+    entry,
+    launch_counts,
+    positions,
+    reconstructed,
+    sync,
+)
 
 REPO = Path(__file__).resolve().parent
 MiB = 1 << 20
@@ -172,8 +199,12 @@ KERNELS = {
 #: launch; the EC collectives encode, CRC the sent and received shards, and
 #: decode with runtime matrices; the checkpoint restore verifies every full
 #: block with the fused CRC, its unaligned tail block with the chunk CRCs,
-#: and rebuilds every cold-copy block with the GF(2^8) decode; the dataset
-#: infeed reads records on the host and launches nothing.
+#: and rebuilds every cold-copy block with the GF(2^8) decode; the entry
+#: step CRCs its batch, verifies its 3 replica groups with one chunk-CRC
+#: launch and encodes its parity; the dryrun verifies every replica and
+#: every scattered shard with chunk CRCs and encodes, scatters and decodes
+#: with the GF(2^8) kernel; the dataset infeed reads records on the host
+#: and launches nothing.
 PATH_KERNELS = {
     "read_path": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
     "combined": ("crc32c_blocks",),
@@ -181,6 +212,8 @@ PATH_KERNELS = {
     "infeed": ("crc32c_chunks", "crc32c_blocks"),
     "write": ("crc32c_chunks",),
     "ec_collective": ("crc32c_chunks", "gf256_matmul"),
+    "entry": ("crc32c_chunks", "gf256_matmul"),
+    "dryrun": ("crc32c_chunks", "gf256_matmul"),
     "restore": ("crc32c_blocks", "crc32c_chunks", "gf256_matmul"),
     "dataset": (),
 }
@@ -199,16 +232,6 @@ def reset_launches() -> None:
         k["wrapper"].launches = 0
 
 
-def launches() -> dict[str, int]:
-    return {name: k["wrapper"].launches for name, k in KERNELS.items()}
-
-
-def sync(*devices: torch.device) -> None:
-    for device in set(devices):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-
 def _same(a: torch.Tensor, b: torch.Tensor) -> int:
     """Max |a - b| of two uint32 tensors, exact (as int64)."""
     return int((u32_to_i64(a) - u32_to_i64(b)).abs().max().item()) \
@@ -218,14 +241,6 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> int:
 def _random_words(rng, shape, device) -> torch.Tensor:
     return host_to_device(rng.integers(0, 1 << 32, shape, dtype=np.uint32),
                           device)
-
-
-def _device_words(rng, shape, device) -> torch.Tensor:
-    """Random uint32 words made on ``device`` (for grids of up to a GiB),
-    from a generator seeded by ``rng``."""
-    gen = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 62)))
-    return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
-                         device=device, generator=gen).view(torch.uint32)
 
 
 # ------------------------------------------------------------ phase: read
@@ -617,7 +632,7 @@ def _counted(run) -> dict:
     phase's result gains its launches."""
     reset_launches()
     out = run()
-    out["launches"] = launches()
+    out["launches"] = launch_counts()
     return out
 
 
@@ -645,7 +660,7 @@ def read_path(device: torch.device, *, block_size: int = 64 * MiB,
         passes = [asyncio.run(_pass(reader, sources, device))
                   for _ in range(2)]
         tamper = asyncio.run(_tamper(reader, client, metas, sources, device))
-        counts = launches()
+        counts = launch_counts()
         host = asyncio.run(_host_breakdown(client, metas, device))
         ec_rebuild = asyncio.run(_ec_rebuild(client, metas, device))
         combined = _counted(lambda: asyncio.run(
@@ -667,12 +682,20 @@ def read_path(device: torch.device, *, block_size: int = 64 * MiB,
 # ------------------------------------------------------ phases: write side
 
 
+def _mapping(devices, device: torch.device) -> str:
+    """How ring positions map: distinct cards, or all on ``device``."""
+    n = len(devices)
+    if device.type == "cuda" and len(set(devices)) == n:
+        return "distinct cards"
+    return f"all {n} positions on {device}"
+
+
 def ring_devices(device: torch.device, n: int) -> tuple[list, str]:
-    """n ring positions: distinct cards when ``device`` is a card and there
-    are at least n of them, else every position on ``device``."""
-    if device.type == "cuda" and torch.cuda.device_count() >= n:
-        return [torch.device("cuda", i) for i in range(n)], "distinct cards"
-    return [device] * n, f"all {n} positions on {device}"
+    """n ring positions (``graft_entry.positions``: distinct cards when
+    ``device`` is a card and there are at least n of them, else every
+    position on ``device``) and how they map."""
+    devices = positions(n, device)
+    return devices, _mapping(devices, device)
 
 
 class StoreMember:
@@ -757,7 +780,7 @@ async def _write(devices, root: Path, rng, *, block_size: int,
             "blocks": group.stats.blocks,
             "round_failures": group.stats.round_failures,
             "persist_failures": group.stats.persist_failures,
-            "tamper": tamper, "host": host, "launches": launches()}
+            "tamper": tamper, "host": host, "launches": launch_counts()}
 
 
 async def _write_host_parts(device, member, rng, block_size: int,
@@ -844,14 +867,6 @@ def write_path(device: torch.device, *, block_size: int = 64 * MiB,
     return {**out, "mapping": mapping}
 
 
-def _data_matches(recon: torch.Tensor, words: torch.Tensor) -> bool:
-    """The first len(words) bytes of the (k, S, 128) data shards are the
-    source words, compared on their device."""
-    n = words.numel()
-    return torch.equal(recon.view(torch.int32).reshape(-1)[:n],
-                       words.view(torch.int32).reshape(-1))
-
-
 def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
                   ec: tuple = (6, 3), seed: int = 0) -> dict:
     """The ``ec_collective`` phase: RS(k,m) scatter and gather of one block
@@ -865,7 +880,7 @@ def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
     rng = np.random.default_rng(seed + 2)
     mesh = make_mesh(devices)
     cpb = block_size // CHECKSUM_CHUNK_SIZE
-    words = [_device_words(rng, (cpb, 128), d) for d in devices]
+    words = [device_words(rng, (cpb, 128), d) for d in devices]
     scatter, gather = EcShardScatter(mesh, k, m), EcShardGather(mesh, k, m)
     gather.gather(scatter.scatter(words)[0])
     sync(*devices)
@@ -878,7 +893,7 @@ def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
     scatter_s = time.perf_counter() - t0
     if acks != k + m or not all(bool(o) for o in ok):
         raise AssertionError(f"EC scatter verified on {acks}/{k + m}")
-    after_scatter = launches()
+    after_scatter = launch_counts()
     times = {}
     for failed in (None, 4):
         if failed is not None:
@@ -888,11 +903,12 @@ def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
         recon = gather.gather(shards, failed=failed)
         sync(*devices)
         times[failed] = time.perf_counter() - t0
-        bad = [p for p in range(k + m) if not _data_matches(recon[p], words[p])]
+        bad = [p for p in range(k + m)
+               if not reconstructed(recon[p], words[p])]
         if bad:
             raise AssertionError(f"EC gather (failed={failed}): positions "
                                  f"{bad} differ")
-    after_gather = launches()
+    after_gather = launch_counts()
     del shards, recon
     ring, _ = ring_devices(device, WRITE_RING)
     host = [np.frombuffer(rng.bytes(block_size), dtype=np.uint8)
@@ -914,7 +930,7 @@ def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
                          for x in encode(padded, k, m)[k:]])
         if not np.array_equal(parity.cpu().numpy(), want):
             raise AssertionError(f"write step parity differs at position {p}")
-    total = launches()
+    total = launch_counts()
     gf = "gf256_matmul"
     # Encodes: the scatter's and the write step's; decodes: the gathers'.
     gf_encodes = after_scatter[gf] + total[gf] - after_gather[gf]
@@ -930,6 +946,170 @@ def ec_collective(device: torch.device, *, block_size: int = 64 * MiB,
             "scatter_launches": after_scatter,
             "gf256_launches": {"encode": gf_encodes, "decode": gf_decodes},
             "launches": total}
+
+
+# ------------------------------------------------ phases: entry points
+
+#: The entry step at full width: the smallest multiple of 6 chunks that
+#: holds one 64 MiB block (the client's default block, ``client.py:55``),
+#: so its bytes split into 6 shards of 11,185,152 bytes, a multiple of the
+#: GF kernel's 128-byte row.
+ENTRY_CHUNKS = 131_076
+#: The dryrun: one 64 MiB block a position, on 8 and on 9 positions.
+DRYRUN_CHUNKS = 131_072
+DRYRUN_SIZES = (8, 9)
+
+
+def entry_phase(device: torch.device, *, chunks: int = ENTRY_CHUNKS) -> dict:
+    """The ``entry`` phase: ``graft_entry.entry``'s step at ``chunks``
+    chunks, its chunk CRCs against the expected ones, its parity against
+    the host encoder and its one write ack; then one call with a poisoned
+    expected CRC, which must fail ``crc_ok`` and ``write_ok``. The launch
+    counts are of these two calls; then the step is timed (on a card
+    ``kernels.time_ms``: ``step_ms`` with the stream held, ``call_ms`` one
+    call)."""
+    t0 = time.perf_counter()
+    step, (words, crcs) = entry(device, chunks=chunks)
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    out = step(words, crcs)
+    if not (bool(out["crc_ok"]) and bool(out["write_ok"])
+            and int(out["write_acks"]) == 1):
+        raise AssertionError(f"entry step: crc_ok {bool(out['crc_ok'])}, "
+                             f"write_ok {bool(out['write_ok'])}, acks "
+                             f"{int(out['write_acks'])}")
+    if _same(out["chunk_crcs"], crcs):
+        raise AssertionError("entry step: chunk CRCs differ")
+    k, m = 6, 3
+    want = encode(u32_to_numpy(words).tobytes(), k, m)[k:]
+    if not np.array_equal(out["parity"].cpu().numpy(),
+                          np.stack([np.frombuffer(x, dtype=np.uint8)
+                                    for x in want])):
+        raise AssertionError("entry step: parity differs from the host "
+                             "encoder")
+    poisoned = crcs.clone()
+    poisoned.view(torch.int32)[0] ^= 0x5A5A5A5A
+    bad = step(words, poisoned)
+    tamper = {"crc_ok": bool(bad["crc_ok"]), "write_ok": bool(bad["write_ok"]),
+              "write_acks": int(bad["write_acks"])}
+    if tamper != {"crc_ok": False, "write_ok": False, "write_acks": 0}:
+        raise AssertionError(f"entry step passed a poisoned CRC: {tamper}")
+    counts = launch_counts()
+    return {"phase": "entry", "device": str(device), "chunks": chunks,
+            "bytes": chunks * CHECKSUM_CHUNK_SIZE,
+            "crc_ok": True, "write_ok": True,
+            "write_acks": int(out["write_acks"]),
+            "parity_shape": list(out["parity"].shape), "parity_exact": True,
+            "tamper": tamper, "setup_s": setup_s,
+            "timer": "cuda events, median of 25 (step_ms: stream held; "
+                     "call_ms: one call)" if device.type == "cuda"
+                     else "host clock, median of 5",
+            "step_ms": _part_ms(lambda: step(words, crcs), device),
+            "call_ms": _part_ms(lambda: step(words, crcs), device, held=False),
+            "launches": counts}
+
+
+def dryrun_phase(device: torch.device, *,
+                 chunks_per_position: int = DRYRUN_CHUNKS,
+                 sizes: tuple = DRYRUN_SIZES) -> dict:
+    """The ``dryrun`` phase: ``graft_entry.dryrun_multichip(n)`` for each n
+    of ``sizes`` at ``chunks_per_position`` chunks a position (the data made
+    on the device), every leg checked there, three times: the first run
+    pays the first-use costs of its shapes (device memory, decode
+    matrices), the second is reported, the third runs under
+    ``torch.profiler`` on a card for each leg's device-busy share
+    (:func:`leg_busy`). Per n the mapping, the geometry, the pod shape and
+    shard width, each leg's host-clock seconds (the first run's beside
+    them) and, on a card, the second run's peak device memory and the
+    third run's busy shares."""
+    reset_launches()
+    runs = {}
+    for n in sizes:
+        first = dryrun_multichip(n, device,
+                                 chunks_per_position=chunks_per_position)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        r = dryrun_multichip(n, device, chunks_per_position=chunks_per_position)
+        peak = torch.cuda.max_memory_allocated(device) \
+            if device.type == "cuda" else None
+        busy = _profiled_legs(lambda: dryrun_multichip(
+            n, device, chunks_per_position=chunks_per_position)) \
+            if device.type == "cuda" else None
+        runs[str(n)] = {"mapping": _mapping(r["devices"], device),
+                        "ec": r["ec"], "pod": r["pod"],
+                        "replication": r["replication"],
+                        "write_acks": r["write_acks"],
+                        "scatter_acks": r.get("scatter_acks"),
+                        "gather_failed": r.get("gather_failed"),
+                        "shard_bytes": r.get("shard_bytes"),
+                        "parity_shape": r["parity_shape"],
+                        "exact": r.get("exact", False),
+                        "seconds": r["seconds"],
+                        "first_seconds": first["seconds"],
+                        "peak_bytes": peak, "leg_launches": r["leg_launches"],
+                        "launches": r["launches"], "busy": busy}
+    return {"phase": "dryrun", "device": str(device),
+            "chunks_per_position": chunks_per_position,
+            "bytes_per_position": chunks_per_position * CHECKSUM_CHUNK_SIZE,
+            "timer": "host clock a leg, ended by a synchronize; busy: "
+                     "torch.profiler trace of a third run",
+            "runs": runs, "launches": launch_counts()}
+
+
+#: Trace categories of device work in ``torch.profiler``'s Chrome trace.
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _covered(intervals, a: float, b: float) -> float:
+    """How much of [a, b] the intervals, sorted by start, cover (overlaps
+    count once)."""
+    total, end = 0.0, a
+    for s, e in intervals:
+        s, e = max(s, end), min(e, b)
+        if e > s:
+            total += e - s
+            end = e
+    return total
+
+
+def leg_busy(events: list) -> dict | None:
+    """Per ``dryrun.<leg>`` range of a Chrome trace's events (``ts`` and
+    ``dur`` in microseconds): its host-clock span, the time within it in
+    which a card ran a kernel, a copy or a memset (the union of their
+    intervals, every card and stream together) and that time's share of
+    the span. Each range ends after its leg's synchronize, so the leg's
+    device work lies inside it. None when the trace holds no device work
+    (not measured)."""
+    work = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in events
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK)
+    if not work:
+        return None
+    legs = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "user_annotation" and name.startswith("dryrun."):
+            a, b = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+            busy = _covered(work, a, b)
+            legs[name[len("dryrun."):]] = {
+                "span_ms": (b - a) / 1e3, "device_busy_ms": busy / 1e3,
+                "busy_share": busy / (b - a) if b > a else None}
+    return legs
+
+
+def _profiled_legs(run) -> dict | None:
+    """``run()`` under ``torch.profiler`` (CPU and CUDA activity), its
+    Chrome trace written to ``build/dryrun_trace.json`` and read by
+    :func:`leg_busy`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    trace = REPO / "build" / "dryrun_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    return leg_busy(json.loads(trace.read_text())["traceEvents"])
 
 
 # ------------------------------------------------------- phase: restore
@@ -1023,7 +1203,7 @@ async def _restore_run(reader: HbmReader, client: LocalClient, spec: dict,
     tensor (ended by a synchronize), then checked against ``tree``."""
     stats = {"degraded_shard_reads": 0}
     stage = dict.fromkeys(("read", "combined_crc", "assemble", "bounce"), 0.0)
-    rereads, before = reader.rereads, launches()
+    rereads, before = reader.rereads, launch_counts()
     sync(device)
     t0 = time.perf_counter()
     out = await restore_shard_device(reader, client, spec, device, stats,
@@ -1034,7 +1214,7 @@ async def _restore_run(reader: HbmReader, client: LocalClient, spec: dict,
     return {"seconds": seconds, "gbps": spec["size"] / seconds / 1e9,
             "stage_s": stage, "rereads": reader.rereads - rereads,
             "degraded_shard_reads": stats["degraded_shard_reads"],
-            "launches": _delta(launches(), before)}
+            "launches": _delta(launch_counts(), before)}
 
 
 def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
@@ -1094,7 +1274,7 @@ def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
         if degraded["degraded_shard_reads"] != 1 or \
                 rebuilt != len(blocks) * (device.type == "cuda"):
             raise AssertionError(f"degraded restore: {degraded}")
-        counts = launches()
+        counts = launch_counts()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     reduced = [] if params == CKPT_PARAMS else [
@@ -1271,7 +1451,7 @@ def _kernels_vs_plain(device: torch.device, rng) -> dict:
     blocks = {}
     for cpb in (1, 257, 131072):
         for nblocks in (1, 3, 4, 16):
-            words = _device_words(rng, (nblocks * cpb, 128), device)
+            words = device_words(rng, (nblocks * cpb, 128), device)
             err = _same(crc32c_blocks_device(words, nblocks),
                         crc32c_blocks_plain(words, nblocks, wcontrib,
                                             inv_contrib(),
@@ -1340,7 +1520,7 @@ def _kernel_times(device: torch.device, rng, counts: dict,
 
     # The combiner's round: COMBINED_BATCH blocks in one launch.
     nb = COMBINED_BATCH
-    round_words = _device_words(rng, (nb * c, 128), device)
+    round_words = device_words(rng, (nb * c, 128), device)
     round_ms = _time_ms(lambda: crc32c_blocks_device(round_words, nb), device)
     round_call = _time_ms(lambda: crc32c_blocks_device(round_words, nb),
                           device, False)
@@ -1442,7 +1622,7 @@ def _write_kernel_times(device, rng, by_path, write, ec, phase, table) -> None:
     included; those bytes are reported beside it, not in the bound."""
     c = write["replication"] * write["blocks_per_position"] \
         * (write["block_size"] // CHECKSUM_CHUNK_SIZE)
-    words = _device_words(rng, (c, 128), device)
+    words = device_words(rng, (c, 128), device)
     wcontrib = host_to_device(word_contrib_table(), device)
     crc = _timed_row(
         device, lambda: crc32c_chunks_device(words),
@@ -1452,7 +1632,7 @@ def _write_kernel_times(device, rng, by_path, write, ec, phase, table) -> None:
     del words
     k, m = ec["ec"]
     w = ec["shard_bytes"] // 4
-    shards = _device_words(rng, (k + m, w), device)
+    shards = device_words(rng, (k + m, w), device)
     enc = host_to_device(coef_bits(k, m), device)
     dec = matrix_bits_device(decode_select_matrices(
         k, m, k + m, k + m, ec["gather_failed"])[0], device)
@@ -1486,7 +1666,7 @@ def _restore_kernel_times(device, rng, restore, phase, table) -> None:
     survivors (a (k, k) matrix at one block's padded shard width; its bound
     counts k rows in and k out)."""
     c = restore["block_size"] // CHECKSUM_CHUNK_SIZE
-    words = _device_words(rng, (c, 128), device)
+    words = device_words(rng, (c, 128), device)
     wcontrib = host_to_device(word_contrib_table(), device)
     fold = fold_table_device(c, device)
     crc = _timed_row(
@@ -1499,7 +1679,7 @@ def _restore_kernel_times(device, rng, restore, phase, table) -> None:
     w = pad_shard_len(-(-restore["block_size"] // k)) // 4
     present = tuple(i for i in range(k + m) if i not in restore["ec_lost"])
     dec = matrix_bits_device(decode_matrix(k, m, present), device)
-    shards = _device_words(rng, (k, w), device)
+    shards = device_words(rng, (k, w), device)
     decode = _timed_row(
         device, lambda: gf_matmul_words(shards, dec),
         lambda: gf_rows_plain(shards, dec), 2 * k * w * 4 + dec.numel() * 4,
@@ -1509,6 +1689,74 @@ def _restore_kernel_times(device, rng, restore, phase, table) -> None:
     rows = {row["name"]: row for row in table}
     rows["crc32c_blocks"]["at_restore_block"] = crc
     rows["gf256_matmul"]["at_restore_decode"] = decode
+
+
+def _entry_kernel_times(device, rng, entry_run, dryrun, phase,
+                         table) -> None:
+    """Both kernels at the entry points' shapes, added to the
+    kernel_times phase and, nested, to the table's rows, each with its
+    phase's launches of that kernel: the entry step's chunk CRCs, its
+    write-step verify (3 replica groups of the same chunks in one launch)
+    and its RS(6,3) parity (6 rows in, 3 out, at the step's shard width);
+    the 8-position dryrun's RS(k,m) scatter encode and its (k, k+m)
+    runtime gather decode around position 0 (the decode's bound counts the
+    2k rows it needs, as at the write side's shapes); and each pod leg's
+    RS(k2,m2) scatter encode at its shard width (2x4: RS(2,2), 3x3:
+    RS(1,2)), which nothing in the pod leg decodes again."""
+    c = entry_run["chunks"]
+    wcontrib = host_to_device(word_contrib_table(), device)
+    by_shape = {}
+    for key, chunks in (("entry", c), ("entry_write_verify", 3 * c)):
+        words = device_words(rng, (chunks, 128), device)
+        by_shape[key] = "crc32c_chunks", _timed_row(
+            device, lambda: crc32c_chunks_device(words),
+            lambda: crc32c_chunks_plain(words, wcontrib, inv_contrib()),
+            chunks * 512 + 32 * 128 * 4 + chunks * 4,
+            entry_run["launches"]["crc32c_chunks"], chunks=chunks)
+        del words
+    w = c * CHECKSUM_CHUNK_SIZE // 6 // 4
+    data = device_words(rng, (6, w), device)
+    enc = host_to_device(coef_bits(6, 3), device)
+    by_shape["entry_encode"] = "gf256_matmul", _timed_row(
+        device, lambda: gf_matmul_words(data, enc),
+        lambda: gf_rows_plain(data, enc), 9 * w * 4 + enc.numel() * 4,
+        entry_run["launches"]["gf256_matmul"], words=w, matrix=[3, 6])
+    del data
+    run = dryrun["runs"][str(DRYRUN_SIZES[0])]
+    k, m = run["ec"]
+    w = run["shard_bytes"] // 4
+    shards = device_words(rng, (k + m, w), device)
+    enc = host_to_device(coef_bits(k, m), device)
+    dec = matrix_bits_device(decode_select_matrices(
+        k, m, k + m, k + m, run["gather_failed"])[0], device)
+    gf_launches = dryrun["launches"]["gf256_matmul"]
+    rows_in = shards[:k]
+    by_shape[f"dryrun_encode_{k}_{m}"] = "gf256_matmul", _timed_row(
+        device, lambda: gf_matmul_words(rows_in, enc),
+        lambda: gf_rows_plain(rows_in, enc), (k + m) * w * 4 + enc.numel() * 4,
+        gf_launches, words=w, matrix=[m, k])
+    decode = _timed_row(
+        device, lambda: gf_matmul_words(shards, dec),
+        lambda: gf_rows_plain(shards, dec), 2 * k * w * 4 + dec.numel() * 4,
+        gf_launches, words=w, matrix=[k, k + m])
+    decode["bytes_read_by_design"] = (k + m + k) * w * 4 + dec.numel() * 4
+    by_shape[f"dryrun_decode_{k}_{k + m}"] = "gf256_matmul", decode
+    for n in DRYRUN_SIZES:
+        pod = dryrun["runs"][str(n)]["pod"]
+        k2, m2 = pod["ec"]
+        w = pod["shard_bytes"] // 4
+        pod_in = device_words(rng, (k2, w), device)
+        enc = host_to_device(coef_bits(k2, m2), device)
+        by_shape[f"pod_encode_{k2}_{m2}"] = "gf256_matmul", _timed_row(
+            device, lambda: gf_matmul_words(pod_in, enc),
+            lambda: gf_rows_plain(pod_in, enc),
+            (k2 + m2) * w * 4 + enc.numel() * 4, gf_launches, words=w,
+            matrix=[m2, k2], pod=pod["shape"])
+        del pod_in
+    rows = {row["name"]: row for row in table}
+    for key, (name, row) in by_shape.items():
+        phase[f"{name}_{key}"] = row
+        rows[name][f"at_{key}"] = row
 
 
 def main(argv=None) -> int:
@@ -1539,13 +1787,18 @@ def main(argv=None) -> int:
     emit(write)
     ec = ec_collective(device, seed=args.seed)
     emit(ec)
+    entry_run = entry_phase(device)
+    emit(entry_run)
+    dryrun = dryrun_phase(device)
+    emit(dryrun)
     restore = restore_path(device, seed=args.seed)
     emit(restore)
     dataset = _counted(lambda: dataset_path(device, seed=args.seed))
     emit(dataset)
     by_path = {"read_path": result["launches"],
                **{p["phase"]: p["launches"]
-                  for p in batched + [write, ec, restore, dataset]}}
+                  for p in batched + [write, ec, entry_run, dryrun, restore,
+                                      dataset]}}
     for path, counts in by_path.items():
         never = [k for k in PATH_KERNELS[path] if not counts[k]]
         if never:
@@ -1554,6 +1807,7 @@ def main(argv=None) -> int:
     phase, table = _kernel_times(device, rng, counts, result["block_size"])
     _write_kernel_times(device, rng, by_path, write, ec, phase, table)
     _restore_kernel_times(device, rng, restore, phase, table)
+    _entry_kernel_times(device, rng, entry_run, dryrun, phase, table)
     emit(phase)
     emit({"phase": "kernels", "launches": counts, "by_path": by_path})
     emit({"kernels": table})

@@ -519,3 +519,76 @@ def test_restore_and_dataset_phases_on_card(cuda_device, tmp_path):
                                 num_workers=0, workdir=tmp_path)
     assert d["exact"] and d["batches"] == 30
     assert list(tmp_path.iterdir()) == []
+
+
+# ------------------------------------------ entry step and dryrun
+
+
+@pytest.mark.parametrize("chunks", [96, 3 * 2048])
+def test_entry_step_on_card_matches_cpu(cuda_device, chunks):
+    """``graft_entry.entry``'s step on the card equals its CPU result, with
+    the expected CRCs as made and with one poisoned; each call launches the
+    chunk CRC twice (the batch, then the write step's 3-group verify) and
+    the GF(2^8) kernel once (the parity)."""
+    from tpudfs_torch import graft_entry
+
+    out = {}
+    for dev in (cuda_device, CPU):
+        step, (words, crcs) = graft_entry.entry(dev, chunks=chunks)
+        poisoned = crcs.clone()
+        poisoned.view(torch.int32)[1] ^= 0x5A5A5A5A
+        crc0 = crc32c_cuda.crc32c_chunks_device.launches
+        gf0 = rs_cuda.gf_matmul_words.launches
+        runs = [step(words, c) for c in (crcs, poisoned)]
+        if dev.type == "cuda":
+            assert crc32c_cuda.crc32c_chunks_device.launches == crc0 + 4
+            assert rs_cuda.gf_matmul_words.launches == gf0 + 2
+            assert all(t.device == cuda_device for r in runs
+                       for t in r.values())
+        out[dev.type] = [{k: v.cpu() for k, v in r.items()} for r in runs]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for key in want:
+            assert torch.equal(got[key].reshape(-1).view(torch.uint8),
+                               want[key].reshape(-1).view(torch.uint8)), key
+    assert [bool(r["write_ok"]) for r in out["cuda"]] == [True, False]
+    assert [int(r["write_acks"]) for r in out["cuda"]] == [1, 0]
+
+
+def test_dryrun_nine_positions_on_one_card(cuda_device):
+    """``dryrun_body`` with 9 positions sharing the card: every leg checks
+    itself on the card, and each leg launches the kernels the ring needs
+    (n positions: the write step n verifies + n parities; the scatter 2n
+    CRCs + n encodes, the gather n decodes; the 3x3 pod's chain n verifies
+    and its RS(1,2) scatter 2n CRCs + n encodes)."""
+    from tpudfs_torch import graft_entry
+
+    n = 9
+    r = graft_entry.dryrun_body([cuda_device] * n, chunks_per_position=64)
+    assert r["devices"] == [str(cuda_device)] * n
+    assert (r["ec"], r["exact"], r["write_acks"]) == ([6, 3], True, n)
+    assert r["pod"]["shape"] == [3, 3] and r["pod"]["acks"] == n
+    legs = r["leg_launches"]
+    assert legs["write"] == {"crc32c_chunks": n, "crc32c_blocks": 0,
+                             "gf256_matmul": n}
+    assert legs["scatter_gather"] == {"crc32c_chunks": 2 * n,
+                                      "crc32c_blocks": 0,
+                                      "gf256_matmul": 2 * n}
+    assert legs["pod"] == {"crc32c_chunks": 3 * n, "crc32c_blocks": 0,
+                           "gf256_matmul": n}
+    assert r["launches"] == {"crc32c_chunks": 6 * n, "crc32c_blocks": 0,
+                             "gf256_matmul": 4 * n}
+
+
+def test_entry_and_dryrun_phases_on_card(cuda_device):
+    import chip_smoke
+
+    e = chip_smoke.entry_phase(cuda_device, chunks=3 * 1024)
+    assert e["parity_exact"] and e["tamper"]["write_ok"] is False
+    assert e["launches"]["crc32c_chunks"] == 4
+    assert e["launches"]["gf256_matmul"] == 2
+    d = chip_smoke.dryrun_phase(cuda_device, chunks_per_position=256)
+    assert all(r["exact"] for r in d["runs"].values())
+    for r in d["runs"].values():
+        assert set(r["busy"]) == set(r["seconds"])
+        assert all(0 < b["busy_share"] <= 1 for b in r["busy"].values())
+    assert all(d["launches"][k] > 0 for k in chip_smoke.PATH_KERNELS["dryrun"])

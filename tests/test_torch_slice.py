@@ -3,9 +3,10 @@ read path (replicated, tail and degraded RS(6,3) blocks, one confirm, a
 tampered replica flagged and recovered), its batched phases (the read
 combiner, the native sweep pump, the infeed) and its write side (the
 collective write group with a tampered round, the RS(6,3) scatter and
-gather on a 9-position ring, the write step's parity), its checkpoint
-restore (healthy, a flipped replica, the whole shard from the RS(3,2) cold
-copy) and dataset infeed, the rule that the port and the smoke script
+gather on a 9-position ring, the write step's parity), the graft entry
+points (the entry step with a poisoned CRC, the dryrun on 8 and 9
+positions), its checkpoint restore (healthy, a flipped replica, the whole
+shard from the RS(3,2) cold copy) and dataset infeed, the rule that the port and the smoke script
 import neither jax nor ``tpudfs`` and load no library the JAX package
 built, and the script's refusal to run without a card."""
 
@@ -28,6 +29,7 @@ from tpudfs_torch.gpu.ici_replication import make_mesh
 from tpudfs_torch.gpu.infeed import DfsInfeed
 from tpudfs_torch.gpu.read_combiner import ReadCombiner
 from tpudfs_torch.gpu.record_source import device_iterator, make_dataset
+from tpudfs_torch.graft_entry import dryrun_multichip, entry, positions
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -89,6 +91,64 @@ def test_write_side_small_on_cpu(tmp_path):
     assert w["launches"] == ec["launches"] == no_launch
     assert ec["gf256_launches"] == {"encode": 0, "decode": 0}
     assert list(tmp_path.iterdir()) == []  # the stores are removed
+
+
+def test_entry_and_dryrun_phases_small_on_cpu():
+    e = chip_smoke.entry_phase(CPU, chunks=96)
+    assert (e["chunks"], e["bytes"]) == (96, 96 * 512)
+    assert e["crc_ok"] and e["write_ok"] and e["write_acks"] == 1
+    assert e["parity_shape"] == [3, 8192] and e["parity_exact"]
+    assert e["tamper"] == {"crc_ok": False, "write_ok": False,
+                           "write_acks": 0}
+    assert e["step_ms"] > 0 and e["call_ms"] > 0
+    d = chip_smoke.dryrun_phase(CPU, chunks_per_position=6)
+    assert d["bytes_per_position"] == 3072 and set(d["runs"]) == {"8", "9"}
+    r8, r9 = d["runs"]["8"], d["runs"]["9"]
+    assert r8["mapping"] == "all 8 positions on cpu"
+    assert (r8["ec"], r8["pod"]["shape"], r8["pod"]["ec"]) == \
+        ([5, 3], [2, 4], [2, 2])
+    assert (r9["ec"], r9["pod"]["shape"], r9["pod"]["ec"]) == \
+        ([6, 3], [3, 3], [1, 2])
+    for r, n in ((r8, 8), (r9, 9)):
+        assert r["exact"] and r["write_acks"] == r["scatter_acks"] == n
+        assert r["pod"]["acks"] == r["pod"]["scatter_acks"] == n
+        assert r["gather_failed"] == 0
+        assert set(r["seconds"]) == set(r["first_seconds"]) == {
+            "inputs", "write", "scatter_gather", "pod"}
+        assert r["peak_bytes"] is None  # no device memory on the CPU
+        assert r["busy"] is None  # no card to trace
+    assert (r8["pod"]["shard_bytes"], r9["pod"]["shard_bytes"]) == \
+        (1536, 3072)
+    no_launch = {"crc32c_chunks": 0, "crc32c_blocks": 0, "gf256_matmul": 0}
+    assert e["launches"] == d["launches"] == no_launch
+
+
+def test_leg_busy_counts_device_work_once_per_leg():
+    """The dryrun's busy shares from a Chrome trace: device intervals
+    clipped to each ``dryrun.<leg>`` range, overlapping streams counted
+    once, host events and other ranges ignored; no device work at all is
+    not measured."""
+    def ev(cat, name, ts, dur):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur}
+
+    events = [
+        ev("user_annotation", "dryrun.write", 100, 100),
+        ev("user_annotation", "dryrun.pod", 300, 50),
+        ev("user_annotation", "other", 0, 1000),
+        ev("kernel", "crc", 90, 30),  # 20 us inside write
+        ev("gpu_memcpy", "Memcpy DtoD", 150, 20),
+        ev("kernel", "gf", 160, 20),  # overlaps the copy: 10 us more
+        ev("gpu_memset", "Memset", 195, 50),  # 5 us inside write
+        ev("cpu_op", "aten::copy_", 100, 100),
+        ev("kernel", "crc", 310, 10),
+    ]
+    legs = chip_smoke.leg_busy(events)
+    assert set(legs) == {"write", "pod"}
+    assert legs["write"]["span_ms"] == pytest.approx(0.1)
+    assert legs["write"]["device_busy_ms"] == pytest.approx(0.055)
+    assert legs["write"]["busy_share"] == pytest.approx(0.55)
+    assert legs["pod"]["busy_share"] == pytest.approx(0.2)
+    assert chip_smoke.leg_busy(events[:3] + events[7:8]) is None
 
 
 def test_restore_and_dataset_small_on_cpu(tmp_path):
@@ -157,6 +217,8 @@ chip_smoke.read_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
                      block_size=16384, nblocks=2, tail_size=5000)
 chip_smoke.write_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
                       block_size=4096, nblocks=1)
+chip_smoke.entry_phase(torch.device("cpu"), chunks=96)
+chip_smoke.dryrun_phase(torch.device("cpu"), chunks_per_position=6)
 import tpudfs_torch.gpu.torch_data, tpudfs_torch.gpu.wds
 chip_smoke.restore_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
                         params=3000, block_size=4096)
@@ -170,6 +232,7 @@ assert not bad, bad
 for m in ("hbm_reader", "read_combiner", "infeed", "ici_replication",
           "write_group", "checkpoint", "record_source", "torch_data", "wds"):
     assert "tpudfs_torch.gpu." + m in sys.modules, m
+assert "tpudfs_torch.graft_entry" in sys.modules
 assert "tpudfs_torch.common.native" in sys.modules
 assert "tpudfs_torch.common.ckptpaths" in sys.modules
 # The block I/O engine is the port's own build, not the JAX package's.
@@ -201,7 +264,8 @@ def test_port_sources_name_no_jax_or_tpudfs_import():
     for name in ("common/native.py", "gpu/read_combiner.py", "gpu/infeed.py",
                  "gpu/ici_replication.py", "gpu/write_group.py",
                  "common/ckptpaths.py", "gpu/checkpoint.py",
-                 "gpu/record_source.py", "gpu/torch_data.py", "gpu/wds.py"):
+                 "gpu/record_source.py", "gpu/torch_data.py", "gpu/wds.py",
+                 "graft_entry.py"):
         assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):
@@ -233,6 +297,8 @@ def test_entry_points_default_to_cuda(tmp_path):
         assert ReadCombiner(client).device.type == "cuda"
         assert DfsInfeed(client, []).reader.devices[0].type == "cuda"
         assert list(device_iterator([torch.zeros(2)]))[0].is_cuda
+        assert all(d.type == "cuda" for d in positions(3))
+        assert entry()[1][0].is_cuda
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh()
@@ -255,7 +321,15 @@ def test_entry_points_default_to_cuda(tmp_path):
                                 reader=HbmReader(client, [CPU]))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             asyncio.run(mgr.restore(device="cuda"))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            positions(3)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dryrun_multichip(8)
     assert HbmReader(client, [CPU]).devices == [CPU]
     assert ReadCombiner(client, CPU).device == CPU
     assert DfsInfeed(client, [], [CPU]).reader.devices == [CPU]
     assert list(device_iterator([torch.zeros(2)], CPU))[0].device == CPU
+    assert positions(3, CPU) == [CPU] * 3
+    assert entry(CPU)[1][0].device == CPU
