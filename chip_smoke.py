@@ -48,9 +48,12 @@ enough of them, else all to ``cuda:0``; each phase prints its mapping):
 
 - ``write``: the collective write group (``IciWriteGroup``) at 3x
   replication on a 3-position ring, members that persist into port block
-  stores on local disk; every position submits 4 blocks of 64 MiB at once
-  (one round of B=4), twice, then one tampered round (a poisoned expected
-  CRC) that must fail as a whole and persist nothing;
+  stores on local disk; every position writes 4 blocks of 64 MiB at once
+  (one round of B=4) through its member's ``_try_ici_write``, the hook a
+  chunkserver serves a chain write with, twice, every response a success
+  with 3 replicas; then one tampered round (a poisoned expected CRC) that
+  must fail as a whole, answer None (the TCP fallback) for every block,
+  count one fallback each and persist nothing;
 - ``ec_collective``: RS(6,3) scatter and gather of one 64 MiB block per
   position over a 9-position ring, the gather healthy and around position
   4 with its rows overwritten; and ``replicated_write_step(ec=(6,3))`` on
@@ -71,8 +74,9 @@ with the launch counts reset just before it and read just after:
   position's words back bit-exact), and the 2x4 / 3x3 ``(dcn, ici)`` pod
   leg's chain and scatter, each leg timed; one more run of each size
   under ``torch.profiler`` gives each leg's device-busy share from its
-  trace. The live collective-write leg needs the JAX package's
-  chunkserver and runs in the CPU tests only.
+  trace. The live collective-write leg needs the reference's chunkserver
+  and master, which this script may not import: the CPU tests and
+  ``tests/test_torch_cuda.py`` run it.
 
 Then the training job's two reads:
 
@@ -701,11 +705,18 @@ def ring_devices(device: torch.device, n: int) -> tuple[list, str]:
 class StoreMember:
     """A write-group member: an address and a port ``BlockStore`` on local
     disk, persisting each replica with its per-chunk CRCs (the native CRC,
-    as a chunkserver's committer computes them)."""
+    as a chunkserver's committer computes them). ``attach`` binds the
+    chunkserver's hook on it (``_try_ici_write``), which counts its
+    fallbacks and invalidates no cache (it keeps none)."""
+
+    ici_fallbacks = 0
 
     def __init__(self, address: str, root: Path):
         self.address = address
         self.store = BlockStore(root)
+
+    def invalidate_cached(self, block_id: str) -> None:
+        pass
 
     async def persist_ici_replica(self, block_id, data, master_term,
                                   master_shard) -> bool:
@@ -730,6 +741,18 @@ def _read_back(members, datas: dict) -> int:
     return len(jobs)
 
 
+#: The request fields a chain write carries into the hook.
+_WRITE_REQ = {"master_term": 1, "master_shard": "smoke"}
+
+
+def _hook_write(group, members, p: int, bid: str, data: bytes):
+    """One chain write of ``bid`` from ring position ``p``, through its
+    member's ``_try_ici_write`` as a chunkserver serves it (the chain is
+    the position's ring successors)."""
+    return members[p]._try_ici_write(bid, data, _WRITE_REQ,
+                                     group.successors(p))
+
+
 async def _write(devices, root: Path, rng, *, block_size: int,
                  nblocks: int) -> dict:
     n = len(devices)
@@ -751,12 +774,13 @@ async def _write(devices, root: Path, rng, *, block_size: int,
         sync(*devices)
         t0 = time.perf_counter()
         got = await asyncio.gather(*(
-            group.submit(int(bid.split("_")[2]), bid, d, 1, "smoke")
+            _hook_write(group, members, int(bid.split("_")[2]), bid, d)
             for bid, d in datas.items()))
         sync(*devices)
         seconds = time.perf_counter() - t0
-        if got != [n] * len(datas) or group.stats.last_acks != n:
-            raise AssertionError(f"write pass {tag}: replicas {got}, acks "
+        want = {"success": True, "error_message": "", "replicas_written": n}
+        if got != [want] * len(datas) or group.stats.last_acks != n:
+            raise AssertionError(f"write pass {tag}: responses {got}, acks "
                                  f"{group.stats.last_acks}")
         nbytes = sum(map(len, datas.values()))
         return {"bytes": nbytes, "seconds": seconds,
@@ -820,7 +844,8 @@ async def _write_host_parts(device, member, rng, block_size: int,
 async def _write_tamper(group, members, rng, block_size: int) -> dict:
     """One round with position 1's first expected CRC poisoned: it must
     fail as a whole (acks below the positions, one round failure, every
-    future raising the group's ``Error``) and persist nothing."""
+    block's hook answering None, the TCP fallback, and counting one
+    fallback) and persist nothing."""
     n = len(members)
     real = group.replicator.replicate
 
@@ -830,23 +855,27 @@ async def _write_tamper(group, members, rng, block_size: int) -> dict:
         return real(words, crcs)
 
     failures0 = group.stats.round_failures
+    fallbacks0 = [mb.ici_fallbacks for mb in members]
     bids = [f"blk_tamper_{p}" for p in range(n)]
     group.replicator.replicate = poisoned
     try:
         got = await asyncio.gather(
-            *(group.submit(p, bid, rng.bytes(block_size), 1, "smoke")
-              for p, bid in enumerate(bids)), return_exceptions=True)
+            *(_hook_write(group, members, p, bid, rng.bytes(block_size))
+              for p, bid in enumerate(bids)))
     finally:
         group.replicator.replicate = real
     stored = [bid for mb in members for bid in bids
               if mb.store.block_path(bid).exists()]
-    if (not all(isinstance(e, group.Error) for e in got)
+    fallbacks = [mb.ici_fallbacks - f0
+                 for mb, f0 in zip(members, fallbacks0)]
+    if (got != [None] * n or fallbacks != [1] * n
             or group.stats.round_failures != failures0 + 1
             or group.stats.last_acks >= n or stored):
         raise AssertionError(f"tampered round did not fail as a whole: {got}, "
-                             f"acks {group.stats.last_acks}, stored {stored}")
+                             f"fallbacks {fallbacks}, acks "
+                             f"{group.stats.last_acks}, stored {stored}")
     return {"acks": group.stats.last_acks, "round_failures": 1,
-            "futures_failed": len(got), "persisted": 0}
+            "fallbacks": sum(fallbacks), "persisted": 0}
 
 
 def write_path(device: torch.device, *, block_size: int = 64 * MiB,

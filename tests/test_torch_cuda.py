@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch twins,
 on the card. Each test takes the ``cuda_device`` fixture and skips, with
 its reason, on a host without a card: a CUDA kernel has no CPU or
-interpret mode. This file imports neither jax nor ``tpudfs``, so it also
+interpret mode. This file imports no jax; the one test that needs a
+cluster imports the reference's ``InprocCluster`` (masters and
+chunkservers, none of which imports JAX) inside its body. So the file also
 runs on a card host that has no JAX:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -592,3 +594,50 @@ def test_entry_and_dryrun_phases_on_card(cuda_device):
         assert set(r["busy"]) == set(r["seconds"])
         assert all(0 < b["busy_share"] <= 1 for b in r["busy"].values())
     assert all(d["launches"][k] > 0 for k in chip_smoke.PATH_KERNELS["dryrun"])
+
+
+def test_live_write_and_soak_on_card(cuda_device):
+    """The live collective-write leg on 4 positions of the card and one
+    soak round per fault kind on 3, each on the reference's InprocCluster
+    with the port's group (its hook bound on every chunkserver). Prints one
+    ``LIVE_ON_CARD`` JSON line: each run's seconds and kernel launches."""
+    import json
+    import random
+    import time
+
+    from tpudfs.common import native as ref_native
+    from tpudfs.testing.inproc import InprocCluster
+    from tpudfs_torch.graft_entry import launch_counts, live_collective_write
+    from tpudfs_torch.ici_roulette import KINDS, run_round
+
+    # The reference's chunkservers build its native library at first use;
+    # build it here, outside the timed runs, as tests/conftest.py does.
+    t0 = time.perf_counter()
+    ref_native.build_and_load()
+    native_build_s = time.perf_counter() - t0
+
+    def timed(fn) -> tuple:
+        before, t0 = launch_counts(), time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        after = launch_counts()
+        return out, {"seconds": seconds,
+                     "launches": {k: after[k] - before[k] for k in after}}
+
+    msg, live = timed(lambda: live_collective_write(
+        [cuda_device] * 4, cluster_factory=InprocCluster))
+    assert "garbage member EC(2,2) gather reconstructed" in msg
+    assert "3 puts during failover" in msg and "fallback(s))" in msg
+    assert live["launches"]["crc32c_chunks"] > 0
+    assert live["launches"]["gf256_matmul"] > 0
+    report = {"device": torch.cuda.get_device_name(0),
+              "native_build_s": native_build_s, "live": live,
+              "live_message": msg}
+    for i, kind in enumerate(KINDS, 1):
+        r, cost = timed(lambda: run_round(
+            [cuda_device] * 3, InprocCluster, i,
+            random.Random((42 << 16) ^ i), 42, plan=[kind]))
+        assert r["bit"] == [kind] and r["puts_checked"] >= 24, r
+        assert cost["launches"]["crc32c_chunks"] >= r["rounds"]
+        report[kind] = {**cost, **r}
+    print("LIVE_ON_CARD " + json.dumps(report), flush=True)

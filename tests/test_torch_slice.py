@@ -77,7 +77,7 @@ def test_write_side_small_on_cpu(tmp_path):
     assert set(w["stage_s"]) == {"stage", "h2d", "replicate", "acks",
                                  "drain", "persist"}
     assert w["tamper"] == {"acks": 0, "round_failures": 1,
-                           "futures_failed": 3, "persisted": 0}
+                           "fallbacks": 3, "persisted": 0}
     assert (w["round_failures"], w["persist_failures"]) == (1, 0)
     assert set(w["host"]) == {"bytes", "d2h_pageable_gbps", "cut_gbps",
                               "persist_one_block_s"}  # no pinned copy on CPU
@@ -220,6 +220,7 @@ chip_smoke.write_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
 chip_smoke.entry_phase(torch.device("cpu"), chunks=96)
 chip_smoke.dryrun_phase(torch.device("cpu"), chunks_per_position=6)
 import tpudfs_torch.gpu.torch_data, tpudfs_torch.gpu.wds
+import tpudfs_torch.ici_roulette
 chip_smoke.restore_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
                         params=3000, block_size=4096)
 chip_smoke.dataset_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
@@ -233,6 +234,8 @@ for m in ("hbm_reader", "read_combiner", "infeed", "ici_replication",
           "write_group", "checkpoint", "record_source", "torch_data", "wds"):
     assert "tpudfs_torch.gpu." + m in sys.modules, m
 assert "tpudfs_torch.graft_entry" in sys.modules
+assert "tpudfs_torch.chunkserver.ici_member" in sys.modules
+assert "tpudfs_torch.ici_roulette" in sys.modules
 assert "tpudfs_torch.common.native" in sys.modules
 assert "tpudfs_torch.common.ckptpaths" in sys.modules
 # The block I/O engine is the port's own build, not the JAX package's.
@@ -265,7 +268,8 @@ def test_port_sources_name_no_jax_or_tpudfs_import():
                  "gpu/ici_replication.py", "gpu/write_group.py",
                  "common/ckptpaths.py", "gpu/checkpoint.py",
                  "gpu/record_source.py", "gpu/torch_data.py", "gpu/wds.py",
-                 "graft_entry.py"):
+                 "graft_entry.py", "chunkserver/ici_member.py",
+                 "ici_roulette.py"):
         assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):

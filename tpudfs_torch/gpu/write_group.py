@@ -12,11 +12,18 @@ persist — fails the submitting write with :attr:`IciWriteGroup.Error`, and
 the caller falls back to the TCP chain, so durability is never weaker than
 the chain's.
 
-The members are duck-typed: each has an ``address`` and an
-``async persist_ici_replica(block_id, data, master_term, master_shard) ->
-bool``; ``attach`` sets ``_ici_group`` and ``_ici_pos`` on it. A caller
-that catches another exception class than this module's
-:class:`IciWriteError` sets :attr:`IciWriteGroup.Error` in a subclass.
+The members are duck-typed: each has an ``address``, an ``ici_fallbacks``
+count, an ``invalidate_cached(block_id)`` and an ``async
+persist_ici_replica(block_id, data, master_term, master_shard) -> bool``.
+The protocol has two halves. ``attach`` sets ``_ici_group`` and
+``_ici_pos`` on the member; the other half, which submits a chain write
+and catches the group's error, the reference keeps in its chunkserver
+(``ChunkServer._try_ici_write``), where it names the JAX package's
+exception class. So ``attach`` also binds the port's own copy of that body
+(``tpudfs_torch.chunkserver.ici_member.try_ici_write``) on the member as
+``_try_ici_write``: a reference chunkserver then serves collective writes
+without JAX. The copy catches ``group.Error``, so a subclass that sets
+:attr:`IciWriteGroup.Error` to another class keeps working.
 
 Round geometry: one round carries ``B`` blocks of a uniform chunk count
 ``cpb`` from every position (short positions pad with zero blocks, whose
@@ -34,10 +41,12 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
+import types
 from dataclasses import dataclass
 
 import numpy as np
 
+from tpudfs_torch.chunkserver.ici_member import try_ici_write
 from tpudfs_torch.common import native
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c
 from tpudfs_torch.gpu import host_to_device, u32_to_numpy
@@ -133,8 +142,9 @@ class IciWriteGroup:
     # ----------------------------------------------------------- membership
 
     def attach(self, cs, position: int) -> None:
-        """Register the member living at flat position ``position``; a
-        position is 'alive' while its member is attached."""
+        """Register the member living at flat position ``position`` and bind
+        the port's ``_try_ici_write`` on it; a position is 'alive' while its
+        member is attached."""
         if self.members[position] != cs.address:
             raise ValueError(
                 f"position {position} belongs to {self.members[position]}, "
@@ -142,6 +152,7 @@ class IciWriteGroup:
         self._cs[position] = cs
         cs._ici_group = self
         cs._ici_pos = position
+        cs._try_ici_write = types.MethodType(try_ici_write, cs)
 
     def detach(self, position: int) -> None:
         cs = self._cs.pop(position, None)

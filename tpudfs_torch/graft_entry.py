@@ -358,9 +358,10 @@ def live_collective_write(devices, cluster_factory, *,
     ``cluster_factory(workdir, n_masters, n_cs)`` returns a cluster with
     ``start``, ``ready``, ``leader``, ``client``, ``chunkservers``,
     ``masters``, ``heartbeats`` and ``stop`` (``InprocCluster``'s surface);
-    ``group_cls`` is the write group its chunkservers attach (a subclass
-    whose ``Error`` is the exception they catch). Returns the leg's
-    message; a failed check raises AssertionError."""
+    ``group_cls`` is the write group its chunkservers attach. ``attach``
+    binds the port's own ``_try_ici_write`` on each chunkserver, so the
+    leg needs no JAX on the host. Returns the leg's message; a failed check
+    raises AssertionError."""
     n_ring = min(4, len(devices))
     if n_ring < 3:
         return "live collective write skipped (mesh < 3 positions)"
