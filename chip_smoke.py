@@ -14,7 +14,7 @@ Output (stdout): the card's ``nvidia-smi`` name and power limit, one JSON
 line per phase (``device``, ``build``, ``kernels_vs_plain``, ``read_path``,
 ``ec_rebuild``, ``combined``, ``sweep``, ``infeed``, ``write``,
 ``ec_collective``, ``entry``, ``dryrun``, ``restore``, ``dataset``,
-``kernel_times``, ``kernels``), the kernel table
+``bench``, ``kernel_times``, ``kernels``), the kernel table
 ``{"kernels": [...]}`` (each row at the read path's shape, with the write
 side's shapes nested in it), and last
 ``{"ok": true, "device": {...}}``. Any mismatch raises: the run exits
@@ -93,8 +93,21 @@ Then the training job's two reads:
   ``DfsRecordSource``, ``make_dataset`` and ``device_iterator``, a few
   hundred batches, each checked against the source.
 
+Then the bench:
+
+- ``bench``: ``tpudfs_torch.bench``'s local run at its full constants
+  (3 sets of 128 files of one 1 MiB block, 3x replication, laid out in the
+  chunkserver's format; raw infeed, the sweep pump's cold and warm
+  windows, the write step and the RS(6,3) scatter step on a 1-position
+  ring, one confirm), then its two read probes on set 0:
+  ``read_profile`` (meta, disk, h2d, full, fused) and five ``sweep_lab``
+  cold/warm pairs through the combiner's rounds of 16; then set 0 read
+  once more and checked byte for byte. The remote half (writes, creates,
+  the gRPC and cache sweeps) needs the reference's servers:
+  ``tests/test_torch_cuda.py`` runs it.
+
 Data is made from ``--seed`` with numpy (and with torch generators on the
-card for the checkpoint's state).
+card for the checkpoint's state); the bench's bytes from its own seeds.
 """
 
 from __future__ import annotations
@@ -114,9 +127,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpudfs_torch import bench, read_profile, sweep_lab
 from tpudfs_torch.client.local import DfsError, LocalClient
 from tpudfs_torch.chunkserver.blockstore import BlockStore
-from tpudfs_torch.common import ckptpaths, native
+from tpudfs_torch.common import ckptpaths, layout, native
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c, crc32c_fold
 from tpudfs_torch.common.erasure import encode
 from tpudfs_torch.gpu import host_to_device, u32_to_i64, u32_to_numpy
@@ -208,7 +222,10 @@ KERNELS = {
 #: launch and encodes its parity; the dryrun verifies every replica and
 #: every scattered shard with chunk CRCs and encodes, scatters and decodes
 #: with the GF(2^8) kernel; the dataset infeed reads records on the host
-#: and launches nothing.
+#: and launches nothing; the bench's probes read through the combiner's
+#: fused rounds (and the per-block path's fused CRC), its write step
+#: verifies with the chunk CRCs and its scatter encodes with the GF(2^8)
+#: kernel.
 PATH_KERNELS = {
     "read_path": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
     "combined": ("crc32c_blocks",),
@@ -220,6 +237,7 @@ PATH_KERNELS = {
     "dryrun": ("crc32c_chunks", "gf256_matmul"),
     "restore": ("crc32c_blocks", "crc32c_chunks", "gf256_matmul"),
     "dataset": (),
+    "bench": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
 }
 #: The write phase: 3x replication (BASELINE.json's HA layout) on a
 #: 3-position ring, 4 blocks a position a round.
@@ -250,56 +268,18 @@ def _random_words(rng, shape, device) -> torch.Tensor:
 # ------------------------------------------------------------ phase: read
 
 
-def _block_meta(bid, size, locations, crc, **ec) -> dict:
-    return {"block_id": bid, "size": size, "locations": list(locations),
-            "checksum_crc32c": crc, "ec_data_shards": ec.get("k", 0),
-            "ec_parity_shards": ec.get("m", 0),
-            "original_size": size if ec else 0}
-
-
-def _stores(workdir: Path, n: int) -> tuple[list, dict, dict]:
-    """n chunkserver stores under ``workdir``: (addrs, ``LocalClient``
-    stores, open ``BlockStore`` handles)."""
-    addrs = [f"cs{i}:7000" for i in range(n)]
-    stores = {a: (workdir / f"cs{i}" / "hot", None) for i, a in enumerate(addrs)}
-    handles = {a: BlockStore(hot, cold) for a, (hot, cold) in stores.items()}
-    return addrs, stores, handles
-
-
-def _write_replicated(handles: dict, addrs: list, path: str, data: np.ndarray,
-                     block_size: int, tag: str | None = None) -> dict:
-    """``data`` as a file of ``block_size`` blocks at 3x replication on
-    the first three stores (block i's first replica on store i % 3), each
-    replica with its sidecar CRCs (the native CRC); returns the file's
-    GetFileInfo-shaped meta. Block ids are ``blk_<tag>_<i>``, the tag by
-    default from the path."""
-    tag = tag or path.strip("/").replace("/", "_")
-    blocks = []
-    for i, off in enumerate(range(0, len(data), block_size)):
-        piece = data[off : off + block_size]
-        sums = native.crc32c_chunks(piece)
-        bid = f"blk_{tag}_{i}"
-        locs = [addrs[(i + r) % 3] for r in range(3)]
-        for a in locs:
-            handles[a].write(bid, piece, sums)
-        blocks.append(_block_meta(bid, len(piece), locs,
-                                  crc32c_fold(sums, len(piece),
-                                              CHECKSUM_CHUNK_SIZE)))
-    return {"path": path, "size": len(data), "blocks": blocks}
-
-
 def lay_out(workdir: Path, rng, *, block_size: int, nblocks: int,
             tail_size: int, ec: tuple, lost: tuple) -> tuple:
     """Stores in the chunkserver's format + GetFileInfo-shaped metas.
     Returns (stores, metas, sources): ``sources[path]`` is the file's bytes."""
     k, m = ec
-    addrs, stores, handles = _stores(workdir, max(3, k + m))
+    addrs, stores, handles = layout.stores(workdir, max(3, k + m))
     metas, sources = {}, {}
     for path, nbytes in (("/smoke/big", nblocks * block_size),
                          ("/smoke/tail", tail_size)):
         sources[path] = np.frombuffer(rng.bytes(nbytes), dtype=np.uint8)
-        metas[path] = _write_replicated(handles, addrs, path, sources[path],
-                                       block_size)
+        metas[path] = layout.write_replicated(handles, addrs, path,
+                                              sources[path], block_size)
     ecdata = rng.bytes(block_size)
     shards = encode(ecdata, k, m)
     for i, shard in enumerate(shards):
@@ -308,7 +288,8 @@ def lay_out(workdir: Path, rng, *, block_size: int, nblocks: int,
     crc = crc32c_fold(native.crc32c_chunks(ecdata), block_size,
                       CHECKSUM_CHUNK_SIZE)
     metas["/smoke/ec"] = {"path": "/smoke/ec", "size": block_size, "blocks": [
-        _block_meta("blk_smoke_ec_0", block_size, addrs[: k + m], crc, k=k, m=m)
+        layout.block_meta("blk_smoke_ec_0", block_size, addrs[: k + m], crc,
+                          k=k, m=m)
     ]}
     sources["/smoke/ec"] = np.frombuffer(ecdata, dtype=np.uint8)
     return stores, metas, sources
@@ -1177,9 +1158,9 @@ def lay_out_shard(workdir: Path, payload: np.ndarray, *, block_size: int,
     hot copy at ``hot`` and an RS(k,m) cold copy at ``cold`` (the host
     encoder; shard j of every block on store j). Returns (stores, metas)."""
     k, m = ec
-    addrs, stores, handles = _stores(workdir, max(3, k + m))
-    metas = {hot: _write_replicated(handles, addrs, hot, payload, block_size,
-                                   tag="ckpt_hot")}
+    addrs, stores, handles = layout.stores(workdir, max(3, k + m))
+    metas = {hot: layout.write_replicated(handles, addrs, hot, payload,
+                                          block_size, tag="ckpt_hot")}
     blocks = []
     for i, off in enumerate(range(0, len(payload), block_size)):
         piece = payload[off : off + block_size]
@@ -1187,8 +1168,8 @@ def lay_out_shard(workdir: Path, payload: np.ndarray, *, block_size: int,
         for j, shard in enumerate(encode(piece, k, m)):
             handles[addrs[j]].write(bid, shard, native.crc32c_chunks(shard))
         crc = metas[hot]["blocks"][i]["checksum_crc32c"]
-        blocks.append(_block_meta(bid, len(piece), addrs[: k + m], crc,
-                                  k=k, m=m))
+        blocks.append(layout.block_meta(bid, len(piece), addrs[: k + m], crc,
+                                        k=k, m=m))
     metas[cold] = {"path": cold, "size": len(payload), "blocks": blocks}
     return stores, metas
 
@@ -1354,10 +1335,11 @@ def dataset_path(device: torch.device, *, file_bytes: int = 1 << 30,
         t0 = time.perf_counter()
         tokens = np.random.default_rng(seed + 4).integers(
             0, GPT2_VOCAB, file_bytes // 2, dtype=np.uint16)
-        addrs, stores, handles = _stores(tmp, 3)
+        addrs, stores, handles = layout.stores(tmp, 3)
         path = "/smoke/tokens"
-        metas = {path: _write_replicated(handles, addrs, path,
-                                        tokens.view(np.uint8), block_size)}
+        metas = {path: layout.write_replicated(handles, addrs, path,
+                                               tokens.view(np.uint8),
+                                               block_size)}
         setup_s = time.perf_counter() - t0
         record = GPT2_BLOCK_TOKENS * tokens.itemsize
         source = DfsRecordSource(functools.partial(LocalClient, stores, metas),
@@ -1410,6 +1392,50 @@ def dataset_path(device: torch.device, *, file_bytes: int = 1 << 30,
             "first_batch_s": first_s, "seconds": seconds,
             "records_per_s": steady_records / steady,
             "gbps": steady_records * record / steady / 1e9, "exact": True}
+
+
+# ------------------------------------------------------------ phase: bench
+
+
+def bench_phase(device: torch.device, *, sweeps: int = 5,
+                workdir: Path | None = None) -> dict:
+    """The ``bench`` phase: ``tpudfs_torch.bench``'s local run at the
+    bench's constants (``bench.REPS`` sets of ``bench.FILES`` files, each
+    one ``bench.BLOCK_BYTES`` block at 3x replication; ``bench.run_local``
+    lays them out and runs ``run_against(remote=False)``: raw infeed, the
+    sweep pump's cold and warm windows, the write step and the RS(6,3)
+    scatter step, one confirm), then the two read probes on set 0 of the
+    same layout: ``read_profile.profile`` over its first
+    ``read_profile.FILES`` files and ``sweep_lab.lab``'s ``sweeps``
+    cold/warm pairs over the whole set. Then set 0 is read once more
+    through the sweep pump and every block checked byte for byte."""
+    root = Path(workdir) if workdir is not None else REPO / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_bench_", dir=root))
+    try:
+        paths = [bench.file_path(0, i) for i in range(bench.FILES)]
+        reset_launches()
+        t0 = time.perf_counter()
+        client, result = bench.run_local(device, tmp)
+        setup_s = result.pop("layout_s")
+        bench_s = time.perf_counter() - t0 - setup_s
+        profile = asyncio.run(read_profile.profile(
+            client, device, paths[: read_profile.FILES]))
+        lab = asyncio.run(sweep_lab.lab(client, device, paths, sweeps))
+        launches = launch_counts()
+        want = np.frombuffer(bench.block_data(), dtype=np.uint8)
+        blocks = asyncio.run(HbmReader(client, [device])
+                             .sweep_paths_to_device(paths))
+        for path, b in zip(paths, blocks):
+            _check_bytes([b], want, path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "bench", "device": str(device),
+            "files": bench.FILES, "sets": bench.REPS,
+            "block_bytes": bench.BLOCK_BYTES, "replicas": 3,
+            "setup_s": setup_s, "seconds": bench_s, "result": result,
+            "read_profile": profile, "sweep_lab": lab, "exact": True,
+            "launches": launches}
 
 
 # ---------------------------------------------------------- card phases
@@ -1788,6 +1814,66 @@ def _entry_kernel_times(device, rng, entry_run, dryrun, phase,
         rows[name][f"at_{key}"] = row
 
 
+def _bench_kernel_times(device, rng, run, phase, table) -> None:
+    """All three kernels at the bench's shapes, added to the kernel_times
+    phase and, nested, to the table's rows, each with the bench phase's
+    launches: the fused CRC of one full combiner round (``bench.BATCH_READS``
+    blocks of ``bench.BLOCK_BYTES``) and of one block (a one-block round,
+    and ``read_profile``'s per-block ``full`` stage), the chunk CRCs of the
+    write step's verify (3 replica groups of ``bench.ICI_STEP_MB``) and of
+    the scatter step's shard verify (9 shards), and the scatter step's
+    RS(6,3) encode (6 rows in, 3 out, at the scatter's shard width for
+    ``bench.ICI_STEP_MB``). These calls are small, so launch latency may be
+    most of ``call_ms``."""
+    launches = run["launches"]
+    wcontrib = host_to_device(word_contrib_table(), device)
+    cpb = bench.BLOCK_BYTES // CHECKSUM_CHUNK_SIZE
+    nb = bench.BATCH_READS
+    words = device_words(rng, (nb * cpb, 128), device)
+    fold = fold_table_device(cpb, device)
+    by_shape = {"bench_round": ("crc32c_blocks", _timed_row(
+        device, lambda: crc32c_blocks_device(words, nb),
+        lambda: crc32c_blocks_plain(words, nb, wcontrib, inv_contrib(), fold),
+        _blocks_bytes(cpb, nb), launches["crc32c_blocks"], chunks=nb * cpb,
+        nblocks=nb))}
+    block = device_words(rng, (cpb, 128), device)
+    by_shape["bench_block"] = "crc32c_blocks", _timed_row(
+        device, lambda: crc32c_blocks_device(block, 1),
+        lambda: crc32c_blocks_plain(block, 1, wcontrib, inv_contrib(), fold),
+        _blocks_bytes(cpb, 1), launches["crc32c_blocks"], chunks=cpb,
+        nblocks=1)
+    del words, block
+
+    def chunk_row(c: int) -> dict:
+        words = device_words(rng, (c, 128), device)
+        return _timed_row(
+            device, lambda: crc32c_chunks_device(words),
+            lambda: crc32c_chunks_plain(words, wcontrib, inv_contrib()),
+            c * 512 + 32 * 128 * 4 + c * 4, launches["crc32c_chunks"],
+            chunks=c)
+
+    step_bytes = bench.ICI_STEP_MB << 20
+    by_shape["bench_write_verify"] = "crc32c_chunks", chunk_row(
+        3 * step_bytes // CHECKSUM_CHUNK_SIZE)
+    per = -(-step_bytes // 6)  # a data shard's bytes, in whole chunks
+    shard = -(-per // CHECKSUM_CHUNK_SIZE) * CHECKSUM_CHUNK_SIZE
+    # The scatter's two CRC launches a round: all 9 shards, sent and
+    # received.
+    by_shape["bench_scatter_verify"] = "crc32c_chunks", chunk_row(
+        9 * shard // CHECKSUM_CHUNK_SIZE)
+    w = shard // 4
+    data = device_words(rng, (6, w), device)
+    enc = host_to_device(coef_bits(6, 3), device)
+    by_shape["bench_scatter_encode"] = "gf256_matmul", _timed_row(
+        device, lambda: gf_matmul_words(data, enc),
+        lambda: gf_rows_plain(data, enc), 9 * w * 4 + enc.numel() * 4,
+        launches["gf256_matmul"], words=w, matrix=[3, 6])
+    rows = {row["name"]: row for row in table}
+    for key, (name, row) in by_shape.items():
+        phase[f"{name}_{key}"] = row
+        rows[name][f"at_{key}"] = row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1824,10 +1910,12 @@ def main(argv=None) -> int:
     emit(restore)
     dataset = _counted(lambda: dataset_path(device, seed=args.seed))
     emit(dataset)
+    bench_run = bench_phase(device)
+    emit(bench_run)
     by_path = {"read_path": result["launches"],
                **{p["phase"]: p["launches"]
                   for p in batched + [write, ec, entry_run, dryrun, restore,
-                                      dataset]}}
+                                      dataset, bench_run]}}
     for path, counts in by_path.items():
         never = [k for k in PATH_KERNELS[path] if not counts[k]]
         if never:
@@ -1837,6 +1925,7 @@ def main(argv=None) -> int:
     _write_kernel_times(device, rng, by_path, write, ec, phase, table)
     _restore_kernel_times(device, rng, restore, phase, table)
     _entry_kernel_times(device, rng, entry_run, dryrun, phase, table)
+    _bench_kernel_times(device, rng, bench_run, phase, table)
     emit(phase)
     emit({"phase": "kernels", "launches": counts, "by_path": by_path})
     emit({"kernels": table})

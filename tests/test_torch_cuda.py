@@ -10,6 +10,7 @@ runs on a card host that has no JAX:
 """
 
 import asyncio
+import contextlib
 
 import numpy as np
 import pytest
@@ -641,3 +642,134 @@ def test_live_write_and_soak_on_card(cuda_device):
         assert cost["launches"]["crc32c_chunks"] >= r["rounds"]
         report[kind] = {**cost, **r}
     print("LIVE_ON_CARD " + json.dumps(report), flush=True)
+
+
+@contextlib.contextmanager
+def _process_cluster(root, n_cs: int, cache_blocks: int):
+    """1 master and ``n_cs`` chunkservers, each its own OS process (as the
+    JAX package's ``bench.py:265-312`` spawns them: ``BLOCK_CACHE_SIZE`` of
+    ``cache_blocks``, the scrubber held off). Yields (master address,
+    chunkserver processes). The chunkservers load the reference's native
+    library: it is built first, as tests/conftest.py does on the CPU."""
+    from tpudfs.common import native as ref_native
+    from tpudfs.testing.procs import free_port, spawn, terminate_all, wait_ready
+
+    ref_native.build_and_load()
+    logdir = root / "logs"
+    logdir.mkdir()
+    procs: list = []
+    env = {"JAX_PLATFORMS": "cpu"}  # the servers never touch a device
+    try:
+        maddr = f"127.0.0.1:{free_port()}"
+        spawn(procs, "master", logdir, "tpudfs.master",
+              "--port", maddr.rsplit(":", 1)[1],
+              "--data-dir", str(root / "m0"), "--http-port", "0", env=env)
+        wait_ready(logdir, "master")
+        for i in range(n_cs):
+            port = free_port()
+            spawn(procs, f"cs{i}", logdir, "tpudfs.chunkserver",
+                  "--port", str(port), "--data-dir", str(root / f"cs{i}"),
+                  "--masters", maddr, "--rack-id", f"rack-{i}",
+                  "--heartbeat-interval", "0.5", "--scrub-interval", "3600",
+                  "--http-port", "0",
+                  env={**env, "BLOCK_CACHE_SIZE": str(cache_blocks)})
+            wait_ready(logdir, f"cs{i}")
+        yield maddr, procs[1:]
+    finally:
+        terminate_all(procs)
+
+
+def test_bench_against_process_cluster_on_card(cuda_device, tmp_path):
+    """The port's bench, remote windows and all, against a live cluster:
+    1 master and 3 chunkservers, each its own OS process, the reference
+    ``Client`` at 1 MiB blocks with CRC-64 ETags, and ``rpc_call`` bound to
+    an ``RpcClient``; full constants, on ``cuda:0``. Prints one
+    ``BENCH_ON_CARD`` JSON line: the result, the run's seconds and its
+    kernel launches."""
+    import json
+    import time
+
+    from tpudfs.client.client import Client
+    from tpudfs.common.rpc import RpcClient
+    from tpudfs_torch import bench
+    from tpudfs_torch.graft_entry import launch_counts
+
+    t0 = time.perf_counter()
+    with _process_cluster(tmp_path, 3, bench.CS_CACHE_BLOCKS) as (maddr, _):
+        # The reference's native library and the cluster's start.
+        setup_s = time.perf_counter() - t0
+
+        async def run() -> dict:
+            rpc = RpcClient()
+            try:
+                client = Client([maddr], rpc_client=rpc,
+                                block_size=bench.BLOCK_BYTES,
+                                etag_mode="crc64")
+                return await bench.run_against(client, cuda_device,
+                                               rpc_call=rpc.call)
+            finally:
+                await rpc.close()
+
+        before, t0 = launch_counts(), time.perf_counter()
+        result = asyncio.run(run())
+        seconds = time.perf_counter() - t0
+        after = launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    assert result["remote"] is True and result["files"] == bench.FILES
+    assert result["value"] > 0 and result["grpc_read_GBps"] > 0
+    assert result["write_pipeline_GBps"] > 0 and result["cache_read_ops"] > 0
+    assert result["platform"] == "gpu"
+    # The gRPC sweeps' fused rounds verify on the card, the write step
+    # with the chunk CRCs, the scatter's encode with GF(2^8).
+    assert all(n > 0 for n in launches.values()), launches
+    report = {"device": result["device"], "setup_s": setup_s,
+              "seconds": seconds, "launches": launches, "result": result}
+    print("BENCH_ON_CARD " + json.dumps(report), flush=True)
+
+
+def test_ckpt_bench_against_process_cluster_on_card(cuda_device, tmp_path):
+    """The port's checkpoint bench on a live cluster of 1 master and 5
+    chunkservers in their own processes, restores into device memory on
+    ``cuda:0`` (the default), two chunkservers SIGKILLed before the
+    degraded restores (as ``bench.py:485-616`` runs it). Prints one
+    ``CKPT_ON_CARD`` JSON line: the result, its seconds and its kernel
+    launches."""
+    import json
+    import signal
+    import time
+
+    from tpudfs.client.client import Client
+    from tpudfs.common.rpc import RpcClient
+    from tpudfs_torch import bench
+    from tpudfs_torch.graft_entry import launch_counts
+
+    with _process_cluster(tmp_path, 5, bench.CS_CACHE_BLOCKS) as (maddr,
+                                                                  servers):
+        def kill_two() -> None:
+            for p in servers[-2:]:
+                p.send_signal(signal.SIGKILL)
+
+        async def run() -> dict:
+            rpc = RpcClient()
+            try:
+                client = Client([maddr], rpc_client=rpc,
+                                block_size=bench.BLOCK_BYTES,
+                                etag_mode="crc64")
+                return await bench.run_ckpt(client, kill_two)
+            finally:
+                await rpc.close()
+
+        before, t0 = launch_counts(), time.perf_counter()
+        result = asyncio.run(run())
+        seconds = time.perf_counter() - t0
+        after = launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    assert result["platform"] == "gpu" and result["restored_to"] == "cuda:0"
+    for key in ("ckpt_save_GBps", "ckpt_restore_GBps",
+                "ckpt_restore_degraded_GBps", "plain_write_GBps"):
+        assert result[key] > 0, key
+    # Every restored block is verified on the card; the degraded restores
+    # rebuild through the GF(2^8) decode.
+    assert launches["crc32c_blocks"] + launches["crc32c_chunks"] > 0, launches
+    report = {"seconds": seconds, "launches": launches, "result": result}
+    print("CKPT_ON_CARD " + json.dumps(report), flush=True)

@@ -6,7 +6,8 @@ collective write group with a tampered round, the RS(6,3) scatter and
 gather on a 9-position ring, the write step's parity), the graft entry
 points (the entry step with a poisoned CRC, the dryrun on 8 and 9
 positions), its checkpoint restore (healthy, a flipped replica, the whole
-shard from the RS(3,2) cold copy) and dataset infeed, the rule that the port and the smoke script
+shard from the RS(3,2) cold copy) and dataset infeed, the bench phase (the
+port's bench on local file sets and its two read probes), the rule that the port and the smoke script
 import neither jax nor ``tpudfs`` and load no library the JAX package
 built, and the script's refusal to run without a card."""
 
@@ -177,6 +178,32 @@ def test_restore_and_dataset_small_on_cpu(tmp_path):
     assert list(tmp_path.iterdir()) == []  # the stores are removed
 
 
+def test_bench_phase_small_on_cpu(tmp_path, monkeypatch):
+    """The bench phase at a small size: the local bench run, both read
+    probes on set 0 of its layout, set 0 read back byte for byte, no
+    launch counted on the CPU, the layout removed."""
+    from tpudfs_torch import bench, read_profile
+
+    for name, value in (("FILES", 8), ("BLOCK_BYTES", 65536), ("REPS", 2),
+                        ("READ_REPS", 2), ("ICI_STEP_MB", 1),
+                        ("ICI_REPS", 2)):
+        monkeypatch.setattr(bench, name, value)
+    monkeypatch.setattr(read_profile, "FILES", 4)
+    r = chip_smoke.bench_phase(CPU, sweeps=2, workdir=tmp_path)
+    assert (r["files"], r["sets"], r["block_bytes"]) == (8, 2, 65536)
+    assert r["exact"] and r["result"]["remote"] is False
+    assert r["result"]["windows"] == 2 and r["result"]["value"] > 0
+    assert r["result"]["local_read_blocks"] == 2 * 8
+    assert r["read_profile"]["files"] == 4
+    assert set(r["read_profile"]) >= {"meta", "disk", "h2d", "full",
+                                      "fused"}
+    assert len(r["sweep_lab"]["sweeps"]) == 2
+    assert r["launches"] == {"crc32c_chunks": 0, "crc32c_blocks": 0,
+                             "gf256_matmul": 0}
+    assert set(chip_smoke.PATH_KERNELS["bench"]) == set(r["launches"])
+    assert list(tmp_path.iterdir()) == []  # the layout is removed
+
+
 def test_restore_phase_rejects_a_wrong_tensor(tmp_path, monkeypatch):
     """The restore phase fails loudly when a restored tensor differs."""
     real = chip_smoke.restore_shard_device
@@ -226,6 +253,11 @@ chip_smoke.restore_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
 chip_smoke.dataset_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
                         file_bytes=131072, block_size=16384, batches=3,
                         num_workers=0)
+from tpudfs_torch import bench, read_profile
+bench.FILES, bench.BLOCK_BYTES, bench.REPS, bench.READ_REPS = 8, 16384, 1, 1
+bench.ICI_STEP_MB, bench.ICI_REPS, read_profile.FILES = 1, 1, 4
+chip_smoke.bench_phase(torch.device("cpu"), sweeps=1,
+                       workdir=Path({str(tmp_path)!r}))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "tpudfs" or m.startswith("tpudfs."))
@@ -236,6 +268,9 @@ for m in ("hbm_reader", "read_combiner", "infeed", "ici_replication",
 assert "tpudfs_torch.graft_entry" in sys.modules
 assert "tpudfs_torch.chunkserver.ici_member" in sys.modules
 assert "tpudfs_torch.ici_roulette" in sys.modules
+for m in ("bench", "read_profile", "sweep_lab"):
+    assert "tpudfs_torch." + m in sys.modules, m
+assert "tpudfs_torch.common.layout" in sys.modules
 assert "tpudfs_torch.common.native" in sys.modules
 assert "tpudfs_torch.common.ckptpaths" in sys.modules
 # The block I/O engine is the port's own build, not the JAX package's.
@@ -269,7 +304,8 @@ def test_port_sources_name_no_jax_or_tpudfs_import():
                  "common/ckptpaths.py", "gpu/checkpoint.py",
                  "gpu/record_source.py", "gpu/torch_data.py", "gpu/wds.py",
                  "graft_entry.py", "chunkserver/ici_member.py",
-                 "ici_roulette.py"):
+                 "ici_roulette.py", "bench.py", "read_profile.py",
+                 "sweep_lab.py", "common/layout.py"):
         assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):
@@ -331,6 +367,13 @@ def test_entry_points_default_to_cuda(tmp_path):
             entry()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             dryrun_multichip(8)
+        from tpudfs_torch import bench, read_profile, sweep_lab
+        for run in (bench.run_against(client, remote=False),
+                    bench.run_ckpt(client, lambda: None),
+                    read_profile.profile(client, paths=["/f"]),
+                    sweep_lab.lab(client, paths=["/f"])):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                asyncio.run(run)
     assert HbmReader(client, [CPU]).devices == [CPU]
     assert ReadCombiner(client, CPU).device == CPU
     assert DfsInfeed(client, [], [CPU]).reader.devices == [CPU]

@@ -39,16 +39,24 @@ def _loaded_jax() -> list:
 '''
 
 
+def process_without_jax(body: str, timeout: float = 120
+                        ) -> subprocess.CompletedProcess:
+    """Run ``body`` after the prelude; the finished process, its output
+    captured as text."""
+    code = _PRELUDE + textwrap.dedent(body)
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
 def run_without_jax(body: str, timeout: float = 120) -> dict:
     """Run ``body`` after the prelude; it binds ``result`` to a JSON-able
     dict. Returns that dict, with ``loaded_jax`` (the JAX or ``tpudfs.tpu``
     modules in ``sys.modules`` at the end) added."""
-    code = (_PRELUDE + textwrap.dedent(body)
-            + '\nresult["loaded_jax"] = _loaded_jax()\n'
-              'print("RESULT " + json.dumps(result))\n')
-    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=timeout)
+    out = process_without_jax(
+        textwrap.dedent(body)
+        + '\nresult["loaded_jax"] = _loaded_jax()\n'
+          'print("RESULT " + json.dumps(result))\n', timeout)
     if out.returncode != 0:
         raise AssertionError(f"snippet failed (rc {out.returncode}):\n"
                              f"{out.stderr[-4000:]}")

@@ -11,7 +11,9 @@ layout so every module has a named counterpart:
   client, which is the interface :class:`HbmReader` duck-types;
 - ``tpudfs_torch.gpu``: the two hand-written Hopper kernels (CRC32C chunks,
   GF(2^8) matrix product), their plain PyTorch twins, and the verified
-  read into device memory (``hbm_reader``).
+  read into device memory (``hbm_reader``);
+- ``tpudfs_torch.bench`` with ``read_profile`` and ``sweep_lab``: the
+  counterpart of the JAX package's ``bench.py`` and its two read probes.
 
 The port imports torch and numpy only; it never imports jax or ``tpudfs``.
 Entry points default to the CUDA device and raise when there is none,

@@ -63,6 +63,10 @@ class LocalClient:
             for addr, (hot, cold) in stores.items()
         }
         self.metas = dict(metas or {})
+        #: Blocks served by :meth:`_read_local` (every read this client
+        #: serves is local), as the reference client counts its
+        #: short-circuit reads.
+        self.local_read_blocks = 0
 
     async def _local_store(self, addr: str) -> BlockStore | None:
         return self._local_stores.get(addr, (None, None))[0]
@@ -87,6 +91,7 @@ class LocalClient:
             logger.debug("short-circuit read of %s via %s failed: %s",
                          block_id, addr, e)
             return None
+        self.local_read_blocks += 1
         return data
 
     async def _read_block_range(self, block: dict, offset: int, length: int,
