@@ -11,6 +11,7 @@ runs on a card host that has no JAX:
 
 import asyncio
 import contextlib
+import signal
 
 import numpy as np
 import pytest
@@ -650,7 +651,8 @@ def _process_cluster(root, n_cs: int, cache_blocks: int):
     JAX package's ``bench.py:265-312`` spawns them: ``BLOCK_CACHE_SIZE`` of
     ``cache_blocks``, the scrubber held off). Yields (master address,
     chunkserver processes). The chunkservers load the reference's native
-    library: it is built first, as tests/conftest.py does on the CPU."""
+    library: it is built first, as tests/conftest.py does on the CPU. Each
+    chunkserver process carries the address it registered as ``addr``."""
     from tpudfs.common import native as ref_native
     from tpudfs.testing.procs import free_port, spawn, terminate_all, wait_ready
 
@@ -674,6 +676,8 @@ def _process_cluster(root, n_cs: int, cache_blocks: int):
                   "--http-port", "0",
                   env={**env, "BLOCK_CACHE_SIZE": str(cache_blocks)})
             wait_ready(logdir, f"cs{i}")
+            ready = (logdir / f"cs{i}.log").read_text().split("READY ", 1)
+            procs[-1].addr = ready[1].split()[0]
         yield maddr, procs[1:]
     finally:
         terminate_all(procs)
@@ -773,3 +777,180 @@ def test_ckpt_bench_against_process_cluster_on_card(cuda_device, tmp_path):
     assert launches["crc32c_blocks"] + launches["crc32c_chunks"] > 0, launches
     report = {"seconds": seconds, "launches": launches, "result": result}
     print("CKPT_ON_CARD " + json.dumps(report), flush=True)
+
+
+def _sigkill(proc) -> None:
+    proc.send_signal(signal.SIGKILL)
+    proc.wait(timeout=30)
+
+
+#: Seconds until the process master drops a dead chunkserver: its 15 s
+#: liveness cutoff, its 5 s check interval and a heartbeat of slack.
+MASTER_DROPS_DEAD_S = 21.0
+
+
+def _ckpt_chaos_parts(device, root, kib: int) -> dict:
+    """The three checkpoint chaos stages of ``tpudfs_torch.ckpt_chaos``,
+    each on a fresh cluster of 1 master and 5 chunkserver processes (the
+    reference ``Client`` at 1 MiB blocks, its local short circuit off so
+    that a killed chunkserver's disk is out of reach, restores through an
+    ``HbmReader`` on ``device``), kills by SIGKILL: the RS(3,2) rebuild
+    after the data-shard holders die, saves through a seeded kill plan
+    with their settle-and-verify, and kill-mid-checkpoint (last: it leaves
+    2 of 5 chunkservers alive). Returns each part's seconds, its kernel
+    launches and its result."""
+    import random
+    import time
+
+    from tpudfs.client.client import Client
+    from tpudfs.common.rpc import RpcClient
+    from tpudfs_torch import bench
+    from tpudfs_torch import ckpt_chaos as cc
+    from tpudfs_torch.graft_entry import launch_counts
+
+    async def rebuild(client, servers, reader):
+        by_addr = {p.addr: p for p in servers}
+
+        def kill(victims):
+            for addr in victims:
+                _sigkill(by_addr[addr])
+
+        return await cc.rebuild_after_kills(
+            client, kill, base="/chaos/ec", kib=kib, reader=reader,
+            device=device)
+
+    async def faults(client, servers, reader):
+        by_addr = {p.addr: p for p in servers}
+        rng = random.Random(10)
+        plan = cc.kill_plan(rng, by_addr)
+        mgr = cc.roulette_manager(client, reader=reader)
+        attempted, published = await cc.save_through_faults(
+            mgr, steps=4, rng=rng, kib=kib,
+            faults=lambda: cc.run_kill_plan(
+                plan, lambda a: _sigkill(by_addr[a])))
+        out = await cc.settle_and_verify(mgr, attempted, published,
+                                         kib=kib, device=device)
+        return {"plan": plan, "attempted": attempted, **out}
+
+    async def t10(client, servers, reader):
+        async def kill_first():
+            _sigkill(servers[0])
+            await asyncio.sleep(MASTER_DROPS_DEAD_S)
+
+        def kill_mid():
+            for p in servers[1:3]:
+                _sigkill(p)
+
+        return await cc.kill_mid_checkpoint(
+            client, kill_first, kill_mid, base="/chaos/t10", kib=kib,
+            reader=reader, device=device)
+
+    report = {}
+    if device.type == "cuda":
+        # The kernels' builds and the card's context, outside the parts'
+        # timed restores.
+        from tpudfs_torch.gpu import kernels
+
+        t0 = time.perf_counter()
+        for name in kernels.build():
+            kernels.lib(name)
+        torch.zeros(1, device=device).sum().item()
+        report["warm_s"] = time.perf_counter() - t0
+    for name, stage in (("rebuild", rebuild), ("faults", faults),
+                        ("kill_mid", t10)):
+        part_root = root / name
+        part_root.mkdir()
+        with _process_cluster(part_root, 5, bench.CS_CACHE_BLOCKS) as (
+                maddr, servers):
+            async def run() -> dict:
+                rpc = RpcClient()
+                try:
+                    client = Client([maddr], rpc_client=rpc,
+                                    block_size=1 << 20, etag_mode="crc64",
+                                    rpc_timeout=3.0, max_retries=8,
+                                    local_reads=False)
+                    # Every chunkserver registered: RS(3,2) places on 5.
+                    deadline = asyncio.get_running_loop().time() + 60
+                    while True:
+                        try:
+                            await client.create_file("/probe", b"x",
+                                                     ec=(3, 2))
+                            await client.delete_file("/probe")
+                            break
+                        except Exception:
+                            if asyncio.get_running_loop().time() > deadline:
+                                raise
+                            await asyncio.sleep(0.3)
+                    return await stage(client, servers,
+                                       HbmReader(client, [device]))
+                finally:
+                    await rpc.close()
+
+            before, t0 = launch_counts(), time.perf_counter()
+            result = asyncio.run(run())
+            seconds = time.perf_counter() - t0
+            after = launch_counts()
+        report[name] = {"seconds": seconds,
+                        "launches": {k: after[k] - before[k] for k in after},
+                        "result": result}
+    return report
+
+
+def _rebuild_decode_row(device) -> dict:
+    """The rebuild's GF(2^8) decode at the chaos checkpoint's block width
+    (one 1 MiB block, RS(3,2), data shards 0 and 1 lost): device time
+    against the plain twin's result and time and the byte bound (each
+    survivor read once, each data shard written once, at 3.35 TB/s), and
+    one call's time on an idle stream."""
+    import time
+
+    from tpudfs_torch.gpu.kernels import time_ms
+    from tpudfs_torch.gpu.rs_cuda import pad_shard_len, rs_decode_device
+
+    slen = -(-(1 << 20) // 3)
+    rng = np.random.default_rng(11)
+    host = torch.from_numpy(rng.integers(
+        0, 256, (3, pad_shard_len(slen)), dtype=np.uint8))
+    avail = host.to(device)
+    present = (2, 3, 4)
+    got = rs_decode_device(avail, 3, 2, present).cpu()
+    t0 = time.perf_counter()
+    want = rs_decode_device(host, 3, 2, present)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.equal(got, want)
+    def decode():
+        return rs_decode_device(avail, 3, 2, present)
+
+    return {"shape": list(avail.shape), "ms": time_ms(decode),
+            "call_ms": time_ms(decode, held=False), "plain_ms": plain_ms,
+            "bound_ms": 2 * avail.numel() / 3.35e12 * 1e3}
+
+
+def test_ckpt_chaos_on_card(cuda_device, tmp_path):
+    """The checkpoint stages of the fault tiers against chunkserver
+    processes, every restore into ``cuda:0`` bit-exact (each stage checks
+    it), at 16 MiB trees (about 13 MiB a shard, 1 MiB blocks). Prints one
+    ``CHAOS_ON_CARD`` JSON line: each part's seconds, result and kernel
+    launches."""
+    import json
+
+    report = _ckpt_chaos_parts(cuda_device, tmp_path, 16384)
+    for name in ("rebuild", "faults", "kill_mid"):
+        launches = report[name]["launches"]
+        assert launches["crc32c_blocks"] + launches["crc32c_chunks"] > 0, \
+            (name, launches)
+    rebuilt = report["rebuild"]
+    assert rebuilt["result"]["blocks_lost_data"] > 0, rebuilt
+    assert rebuilt["launches"]["gf256_matmul"] > 0, rebuilt
+    assert rebuilt["result"]["gf256_launches"] \
+        >= rebuilt["result"]["blocks_lost_data"], rebuilt
+    # The kill plan starts once step 1 is acked: the settle's check that
+    # every acked step is listed has something to hold.
+    assert report["faults"]["result"]["acked"], report["faults"]
+    kill_mid = report["kill_mid"]["result"]
+    assert kill_mid["mid_save"] and kill_mid["interrupted"], kill_mid
+    puts = kill_mid["resume_puts"]
+    assert puts[0] == 0 and puts[1] >= 1, kill_mid
+    report["rebuild_decode"] = _rebuild_decode_row(cuda_device)
+    report["device"] = torch.cuda.get_device_name(0)
+    print("CHAOS_ON_CARD " + json.dumps(report), flush=True)

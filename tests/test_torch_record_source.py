@@ -7,7 +7,8 @@ stores. Bit-exact: the bytes of every record index, the batches in order
 without a shuffle seed, and the multiset of every epoch with one. Then the
 training loops of ``tests/test_torch_interop.py`` and
 ``tests/test_train_e2e.py`` on the port (torch SGD in place of JAX SGD),
-the second checkpointing through the port's ``CheckpointManager``."""
+one checkpointing through the port's ``CheckpointManager``, one losing a
+chunkserver mid-training."""
 
 import asyncio
 import functools
@@ -487,5 +488,59 @@ async def test_training_checkpoints_through_port_manager_and_resumes(tmp_path):
             _epochs, _factory(c, 2048), paths, w_back.numpy(), 2, 7)
         assert losses2[-1] < losses1[-1] / 2, (losses1[-1], losses2[-1])
         assert np.linalg.norm(w2 - w_true) < np.linalg.norm(w1 - w_true)
+    finally:
+        await c.stop()
+
+
+async def test_training_survives_chunkserver_failure(tmp_path):
+    """``tests/test_train_e2e.py``'s failover loop on the port, with its
+    constants: a chunkserver stops after step 3, the infeed's byte-range
+    reads fail over to the surviving replicas (the test session turns the
+    local short circuit off, so every read goes to a chunkserver), and the
+    loop still learns."""
+    w_true = np.random.default_rng(43).normal(size=E2E_FEATURES).astype(
+        np.float32)
+    files = [(f"/ft/shard-{i:02d}.f32", _e2e_shard(70 + i, w_true))
+             for i in range(4)]
+    c, client = await _cluster(tmp_path, files, block_size=2048)
+    try:
+        paths = [f[0] for f in files]
+        killed = asyncio.Event()
+        loop = asyncio.get_running_loop()
+
+        def run():
+            source = rs.DfsRecordSource(_factory(c, 2048), paths,
+                                        (E2E_FEATURES + 1) * 4,
+                                        dtype="float32")
+            try:
+                ds = rs.make_dataset(source, batch_size=E2E_BATCH,
+                                     shuffle_seed=5, num_epochs=4, device=CPU)
+                w = torch.zeros(E2E_FEATURES, requires_grad=True)
+                opt = torch.optim.SGD([w], lr=0.1)
+                losses = []
+                for step, batch in enumerate(rs.device_iterator(ds, CPU)):
+                    if step == 3:
+                        # Worker thread -> loop: a thread-safe signal only.
+                        loop.call_soon_threadsafe(killed.set)
+                    x, y = batch[:, :E2E_FEATURES], batch[:, E2E_FEATURES]
+                    loss = ((x @ w - y) ** 2).mean()
+                    opt.zero_grad()
+                    loss.backward()
+                    opt.step()
+                    losses.append(loss.item())
+                return w.detach().numpy(), losses
+            finally:
+                source.close()
+
+        async def killer():
+            await killed.wait()
+            await c.chunkservers[0].stop()
+            c.heartbeats[0].stop()
+
+        (w, losses), _ = await asyncio.gather(asyncio.to_thread(run),
+                                              killer())
+        assert len(losses) == 4 * (4 * E2E_RECORDS // E2E_BATCH)
+        assert losses[-1] < losses[0] / 10, (losses[0], losses[-1])
+        assert np.linalg.norm(w - w_true) < 0.5 * np.linalg.norm(w_true)
     finally:
         await c.stop()

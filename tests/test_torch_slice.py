@@ -248,6 +248,7 @@ chip_smoke.entry_phase(torch.device("cpu"), chunks=96)
 chip_smoke.dryrun_phase(torch.device("cpu"), chunks_per_position=6)
 import tpudfs_torch.gpu.torch_data, tpudfs_torch.gpu.wds
 import tpudfs_torch.ici_roulette
+import tpudfs_torch.ckpt_chaos
 chip_smoke.restore_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
                         params=3000, block_size=4096)
 chip_smoke.dataset_path(torch.device("cpu"), workdir=Path({str(tmp_path)!r}),
@@ -268,6 +269,7 @@ for m in ("hbm_reader", "read_combiner", "infeed", "ici_replication",
 assert "tpudfs_torch.graft_entry" in sys.modules
 assert "tpudfs_torch.chunkserver.ici_member" in sys.modules
 assert "tpudfs_torch.ici_roulette" in sys.modules
+assert "tpudfs_torch.ckpt_chaos" in sys.modules
 for m in ("bench", "read_profile", "sweep_lab"):
     assert "tpudfs_torch." + m in sys.modules, m
 assert "tpudfs_torch.common.layout" in sys.modules
@@ -305,7 +307,7 @@ def test_port_sources_name_no_jax_or_tpudfs_import():
                  "gpu/record_source.py", "gpu/torch_data.py", "gpu/wds.py",
                  "graft_entry.py", "chunkserver/ici_member.py",
                  "ici_roulette.py", "bench.py", "read_profile.py",
-                 "sweep_lab.py", "common/layout.py"):
+                 "sweep_lab.py", "common/layout.py", "ckpt_chaos.py"):
         assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):
@@ -367,11 +369,21 @@ def test_entry_points_default_to_cuda(tmp_path):
             entry()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             dryrun_multichip(8)
-        from tpudfs_torch import bench, read_profile, sweep_lab
+        from tpudfs_torch import bench, ckpt_chaos, read_profile, sweep_lab
+        reader = HbmReader(client, [CPU])
         for run in (bench.run_against(client, remote=False),
                     bench.run_ckpt(client, lambda: None),
                     read_profile.profile(client, paths=["/f"]),
-                    sweep_lab.lab(client, paths=["/f"])):
+                    sweep_lab.lab(client, paths=["/f"]),
+                    ckpt_chaos.kill_mid_checkpoint(
+                        client, lambda: None, lambda: None, base="/c",
+                        kib=1, reader=reader),
+                    ckpt_chaos.settle_and_verify(
+                        ckpt_chaos.roulette_manager(client, reader=reader),
+                        1, set(), kib=1),
+                    ckpt_chaos.rebuild_after_kills(
+                        client, lambda v: None, base="/c", kib=1,
+                        reader=reader)):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 asyncio.run(run)
     assert HbmReader(client, [CPU]).devices == [CPU]

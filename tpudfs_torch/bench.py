@@ -73,6 +73,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpudfs_torch.ckpt_chaos import ckpt_tree, trees_equal
 from tpudfs_torch.client.local import LocalClient
 from tpudfs_torch.common import layout, native
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE
@@ -129,7 +130,6 @@ ICI_REPS = 16
 CKPT_SHARDS = 4
 CKPT_TREE_KIB = 4 * 1024  # ~3.25 MiB payload a shard (see ckpt_tree's mix)
 CKPT_STEPS = 3            # one timed save window per step
-_CKPT_SEED = 0xC4F07
 
 
 def _emit_once(payload: dict) -> bool:
@@ -781,36 +781,6 @@ def main(argv=None) -> int:
 # ------------------------------------------------------------ checkpoints
 
 
-def ckpt_tree(step: int, shard: int, kib: int) -> dict:
-    """The canonical tensor tree for (step, shard): ~``kib`` KiB split
-    across float32 "weights", int32 "opt state" and an int8 tail (the same
-    trees as the reference's ``tpudfs.testing.ckptchaos.ckpt_tree``)."""
-    rng = np.random.default_rng(_CKPT_SEED + 100_003 * step + shard)
-    words = (kib * 1024) // 4
-    w = words // 2
-    o = words // 4
-    return {
-        "layer0/w": rng.standard_normal(w, dtype=np.float32),
-        "opt/step_counts": rng.integers(0, 2**31 - 1, size=o, dtype=np.int32),
-        "opt/flags": rng.integers(-128, 127, size=o, dtype=np.int8),
-    }
-
-
-def trees_equal(a: dict, b: dict) -> bool:
-    """Bit-exact tree comparison (dtype + shape + every element); tensors
-    are compared through their host copies."""
-    if sorted(a) != sorted(b):
-        return False
-    for name in a:
-        x, y = (v.cpu().numpy() if isinstance(v, torch.Tensor)
-                else np.asarray(v) for v in (a[name], b[name]))
-        if x.dtype != y.dtype or x.shape != y.shape:
-            return False
-        if not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
-            return False
-    return True
-
-
 async def run_ckpt(client, kill_two, device=None) -> dict:
     """Sharded checkpoint windows on a live cluster of five chunkservers
     through the port's ``CheckpointManager``: a plain-put yardstick (the
@@ -824,7 +794,7 @@ async def run_ckpt(client, kill_two, device=None) -> dict:
     restore is asked for with ``torch.device("cpu")``."""
     device = resolve_device(device)
     await _wait_ready(client, "/ckpt/probe")
-    trees = {step: {s: ckpt_tree(step, s, CKPT_TREE_KIB)
+    trees = {step: {s: ckpt_tree(step, s, kib=CKPT_TREE_KIB)
                     for s in range(CKPT_SHARDS)}
              for step in range(1, CKPT_STEPS + 1)}
     reader = HbmReader(client, [device])

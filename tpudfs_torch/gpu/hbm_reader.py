@@ -125,6 +125,9 @@ class HbmReader:
         #: Blocks re-read through the host-verified path after their device
         #: check failed (eagerly or at confirm).
         self.rereads = 0
+        #: Degraded EC blocks rebuilt on the device (one GF(2^8) decode
+        #: each: the kernel on a card, its plain twin on the CPU).
+        self.ec_rebuilds = 0
         #: >0 enables the fused read path (one ReadCombiner per device,
         #: max_batch=batch_reads) for lazily verified reads; 0 keeps every
         #: block on the per-block path.
@@ -298,7 +301,9 @@ class HbmReader:
             # to the chunk grid is exact (bytes_to_words pads the same way).
             return flat[:need].view(torch.uint32).view(nchunks, WORDS_PER_CHUNK)
 
-        return await asyncio.to_thread(reconstruct), size
+        words = await asyncio.to_thread(reconstruct)
+        self.ec_rebuilds += 1
+        return words, size
 
     async def _finish_block(self, block: dict, words: torch.Tensor, size: int,
                             verify: bool | str) -> DeviceBlock:
