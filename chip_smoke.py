@@ -81,8 +81,10 @@ with the launch counts reset just before it and read just after:
 Then the training job's two reads:
 
 - ``restore``: one data-parallel rank's checkpoint shard at real size
-  (Llama-2-7B's fp32 weights and Adam moments over 64 ranks: 1.264 GB, 19
-  blocks of 64 MiB), packed by the port's ``pack_shard`` and laid out as
+  (Llama-2-7B's mixed-precision state over 64 ranks: bf16 weights beside
+  the fp32 master weights and Adam moments, 1.474 GB, 22 blocks of 64 MiB;
+  the bf16 tensor takes the host bounce), packed by the port's
+  ``pack_shard`` and laid out as
   the checkpoint manager saves it (a 3x-replicated hot copy and an RS(3,2)
   cold copy), restored into device memory by ``restore_shard_device``:
   healthy twice, with one byte flipped in one hot replica, and with one
@@ -1125,12 +1127,14 @@ def _profiled_legs(run) -> dict | None:
 # ------------------------------------------------------- phase: restore
 
 #: One data-parallel rank's checkpoint shard at real size: Llama-2-7B's
-#: 6.74e9 parameters (Touvron et al. 2023, Table 1) as fp32 master weights
-#: plus Adam's two moments, K = 12 bytes a parameter (ZeRO, Rajbhandari et
-#: al. 2020, section 3.1), partitioned over 64 data-parallel ranks.
+#: 6.74e9 parameters (Touvron et al. 2023, Table 1) in mixed-precision
+#: training state, the bf16 model weights (2 bytes a parameter) beside the
+#: fp32 master weights and Adam's two moments (K = 12 bytes a parameter):
+#: ZeRO's 2Ψ + 12Ψ (Rajbhandari et al. 2020, section 3.1), partitioned over
+#: 64 data-parallel ranks.
 LLAMA2_7B_PARAMS = 6_740_000_000
 CKPT_RANKS = 64
-CKPT_PARAMS = LLAMA2_7B_PARAMS // CKPT_RANKS  # 105,312,500: 1.264 GB a rank
+CKPT_PARAMS = LLAMA2_7B_PARAMS // CKPT_RANKS  # 105,312,500: 1.474 GB a rank
 #: The checkpoint manager's default cold copy (``CheckpointManager(ec=)``)
 #: and the shards the degraded run loses from every block of it.
 CKPT_EC = (3, 2)
@@ -1139,13 +1143,16 @@ CKPT_LOST = (0, 3)
 
 def ckpt_state(n: int, seed: int, device: torch.device) -> dict:
     """One rank's state, made on ``device`` from ``seed``: flat fp32
-    ``params``, ``adam_m`` and ``adam_v`` of ``n`` elements each, an int64
-    ``step`` and an int8 ``flags`` tensor of 13. The last two are not
-    4-byte dtypes, so they take the host bounce, and ``step``, last in name
-    order, ends the payload off a 512-byte boundary."""
+    ``params``, ``adam_m`` and ``adam_v`` of ``n`` elements each, the bf16
+    ``model`` (``params`` rounded to bf16, the weights the forward pass
+    reads), an int64 ``step`` and an int8 ``flags`` tensor of 13. The last
+    three are not 4-byte dtypes, so they take the host bounce, and
+    ``step``, last in name order, ends the payload off a 512-byte
+    boundary."""
     gen = torch.Generator(device=device).manual_seed(seed)
     tree = {name: torch.randn(n, generator=gen, device=device)
             for name in ("params", "adam_m", "adam_v")}
+    tree["model"] = tree["params"].to(torch.bfloat16)
     tree["flags"] = torch.randint(-128, 128, (13,), dtype=torch.int8,
                                   generator=gen, device=device)
     tree["step"] = torch.tensor(1000 + seed, dtype=torch.int64, device=device)
@@ -1186,8 +1193,9 @@ def _drop_shards(client: LocalClient, meta: dict, lost: tuple) -> None:
 
 
 def _check_restored(out: dict, tree: dict, device: torch.device) -> None:
-    """Every tensor bit-exact, of its dtype and shape, on ``device``; the
-    4-byte ones views of one word stream (no copy made)."""
+    """Every tensor bit-exact, of its dtype and shape, on ``device`` (the
+    bf16 ``model`` as ``torch.bfloat16``); the 4-byte ones views of one
+    word stream (no copy made)."""
     if sorted(out) != sorted(tree):
         raise AssertionError(f"restore: tensors {sorted(out)}")
     stream = set()
@@ -1292,9 +1300,13 @@ def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
     if block_size != 64 * MiB:
         reduced.append(f"block_size {block_size} of {64 * MiB}")
     return {"phase": "restore", "device": str(device), "seed": seed,
-            "shard": "Llama-2-7B (6.74e9 params) fp32 weights + Adam m, v "
-                     "(12 B/param), 1 of 64 data-parallel ranks",
-            "states": "flat: params, adam_m, adam_v one tensor each",
+            "shard": "Llama-2-7B (6.74e9 params, Touvron et al. 2023) "
+                     "mixed-precision state: bf16 model weights (2 B/param) "
+                     "+ fp32 master weights and Adam m, v (12 B/param), "
+                     "ZeRO's 2+12 bytes a param (Rajbhandari et al. 2020, "
+                     "section 3.1), 1 of 64 data-parallel ranks",
+            "states": "flat: model (bf16), params, adam_m, adam_v (fp32) "
+                      "one tensor each",
             "params_per_rank": params, "reduced": reduced,
             "tensors": {t["name"]: [t["dtype"], t["shape"]] for t in
                         spec["tensors"]},

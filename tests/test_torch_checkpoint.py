@@ -7,11 +7,15 @@ the CPU device through the port's ``HbmReader``: healthy, through the EC
 cold copy with two chunkservers dead, and through the hot → EC fallback);
 the port's own save (resume, torn checkpoints, idempotent and monotonic
 publish, prune and GC under the reference's resilience scopes), which the
-reference manager then restores; and the device restore of every payload
-dtype on the port's ``LocalClient``."""
+reference manager then restores; the device restore of every payload
+dtype on the port's ``LocalClient``; bf16 and float8 tensors packed as the
+reference packs their ml_dtypes arrays, bf16 checkpoints crossing both
+packages, and the 8-byte widths the port's device restore keeps where the
+reference's narrows them."""
 
 import asyncio
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -34,12 +38,17 @@ CPU = torch.device("cpu")
 
 
 def _tree(seed: int) -> dict:
-    """Every payload dtype of the port's map, odd sizes included."""
+    """Every payload dtype of the port's map that numpy has (bf16 is in
+    ``_raw_bit_trees``), odd sizes included."""
     rng = np.random.default_rng(seed)
     return {
         "w/f4": rng.standard_normal(1000, dtype=np.float32).reshape(10, 100),
         "w/f2": rng.standard_normal(333).astype(np.float16),
         "w/f8": rng.standard_normal(77),
+        "w/c8": (rng.standard_normal(21) + 1j * rng.standard_normal(21))
+        .astype(np.complex64),
+        "w/c16": rng.standard_normal((3, 5)) + 1j * rng.standard_normal(
+            (3, 5)),
         "opt/i4": rng.integers(-2**31, 2**31 - 1, 513, dtype=np.int32),
         "opt/u4": rng.integers(0, 2**32 - 1, 129, dtype=np.uint32),
         "opt/i8": np.asarray(rng.integers(0, 2**62), dtype=np.int64),
@@ -143,8 +152,86 @@ def test_manifest_validation_matches_reference():
 def test_unknown_dtype_raises():
     with pytest.raises(ValueError, match="no torch dtype"):
         port.torch_dtype(">f4")
-    for s in ("<f4", "<i4", "<u4", "|i1", "|u1", "<i8", "<f8", "<f2"):
+    for s in ("<f4", "<i4", "<u4", "|i1", "|u1", "<i8", "<f8", "<f2",
+              "<c8", "<c16", "<V2"):
         assert port.torch_dtype(s).itemsize == np.dtype(s).itemsize
+    assert port.torch_dtype("<V2") == torch.bfloat16
+    assert port.torch_dtype("<c8") == torch.complex64
+    assert port.torch_dtype("<c16") == torch.complex128
+    # What no restore can name again raises, saying why.
+    with pytest.raises(ValueError, match="'<V1': ml_dtypes' 1-byte"):
+        port.torch_dtype("<V1")
+    with pytest.raises(ValueError, match="'<f1': numpy cannot read it"):
+        port.torch_dtype("<f1")
+
+
+# ----------------------------------- dtypes numpy lacks (bf16, float8)
+
+
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _raw_bit_trees(seed: int) -> tuple[dict, dict]:
+    """The same bits as a torch tree and as an ml_dtypes/numpy tree: bf16
+    (odd sizes, a scalar, an empty tensor), every float8 type of
+    ``RAW_DTYPES``, complex64 and complex128."""
+    rng = np.random.default_rng(seed)
+    torch_tree, np_tree = {}, {}
+    shapes = {"a": (7, 3), "b": (1001,), "c": (), "d": (0, 2)}
+    for dtype in port.RAW_DTYPES:
+        bits_t = {1: np.uint8, 2: np.uint16}[dtype.itemsize]
+        for key, shape in shapes.items():
+            bits = rng.integers(0, np.iinfo(bits_t).max, size=shape,
+                                dtype=bits_t, endpoint=True)
+            name = f"{_name(dtype)}/{key}"
+            torch_tree[name] = torch.from_numpy(np.array(bits)).view(dtype)
+            np_tree[name] = bits.view(getattr(ml_dtypes, _name(dtype)))
+    for name, dt in (("c8", np.complex64), ("c16", np.complex128)):
+        z = (rng.standard_normal(37) + 1j * rng.standard_normal(37)).astype(dt)
+        torch_tree[name], np_tree[name] = torch.from_numpy(z.copy()), z
+    return torch_tree, np_tree
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pack_raw_bit_dtypes_matches_reference(seed):
+    """A torch tree of bf16, float8 and complex tensors packs to the payload
+    and specs the reference packs for the same bits as ml_dtypes arrays:
+    the content ETag is the same across packages."""
+    torch_tree, np_tree = _raw_bit_trees(seed)
+    payload, specs = port.pack_shard(torch_tree)
+    ref_payload, ref_specs = ref.pack_shard(np_tree)
+    assert payload == ref_payload
+    assert [s.to_dict() for s in specs] == [s.to_dict() for s in ref_specs]
+    assert {s.dtype for s in specs} == {"<V2", "<V1", "<f1", "<c8", "<c16"}
+    # ml_dtypes arrays given to the port go through np.asarray, as in the
+    # reference.
+    assert port.pack_shard(np_tree)[0] == payload
+    # A non-contiguous bf16 tensor packs in C order, as numpy does.
+    w = torch_tree["bfloat16/a"]
+    assert port.pack_shard({"w": w.t()})[0] == \
+        ref.pack_shard({"w": np_tree["bfloat16/a"].T})[0]
+
+
+@pytest.mark.parametrize("dtype", list(port.RAW_DTYPES), ids=_name)
+def test_raw_dtype_strings_are_ml_dtypes(dtype):
+    """Each constant is the string ml_dtypes records for the type of the
+    same name, and ``"<V2"`` names bf16 alone among ml_dtypes' types."""
+    assert port.RAW_DTYPES[dtype] == \
+        np.dtype(getattr(ml_dtypes, _name(dtype))).str
+    v2 = [n for n in dir(ml_dtypes)
+          if isinstance(getattr(ml_dtypes, n), type)
+          and issubclass(getattr(ml_dtypes, n), np.generic)
+          and np.dtype(getattr(ml_dtypes, n)).str == "<V2"]
+    assert v2 == ["bfloat16"]
+
+
+@pytest.mark.parametrize("dtype", [torch.complex32, torch.uint4, torch.int4,
+                                   torch.float4_e2m1fn_x2], ids=_name)
+def test_pack_refuses_dtypes_numpy_lacks(dtype):
+    t = torch.zeros(8, dtype=torch.uint8).view(dtype)
+    with pytest.raises(TypeError, match=f"cannot checkpoint a {dtype} "):
+        port.pack_shard({"w": t})
 
 
 # --------------------------------------------- device restore, LocalClient
@@ -180,6 +267,55 @@ async def test_device_restore_every_dtype_on_local_client(tmp_path):
             HbmReader(client, [CPU]), client, {**spec, "crc32c": 1}, CPU,
             stats)
     assert stats["degraded_shard_reads"] == 1
+
+
+def _local_spec(tmp_path, tree: dict, block_size: int = 4096):
+    payload, specs = port.pack_shard(tree)
+    stores, metas = chip_smoke.lay_out_shard(
+        tmp_path, np.frombuffer(payload, dtype=np.uint8),
+        block_size=block_size, hot="/c/hot", cold="/c/ec")
+    spec = {"shard": 0, "path": "/c/hot", "ec_path": "/c/ec",
+            "size": len(payload), "crc32c": crc32c(payload),
+            "tensors": [s.to_dict() for s in specs]}
+    return LocalClient(stores, metas), spec, payload
+
+
+async def test_device_restore_bf16_and_complex_on_local_client(tmp_path):
+    """bf16, complex64 and complex128 come back in their torch dtypes, bit
+    for bit, through the host bounce; the host path gives ``|V2`` arrays
+    of the same bytes, as the reference's does."""
+    torch_tree, _ = _raw_bit_trees(3)
+    tree = {k: v for k, v in torch_tree.items()
+            if k.startswith("bfloat16/") or k in ("c8", "c16")}
+    tree["f4"] = torch.arange(100, dtype=torch.float32)
+    client, spec, payload = _local_spec(tmp_path, tree)
+    stage = {}
+    out = await port.restore_shard_device(
+        HbmReader(client, [CPU]), client, spec, CPU,
+        {"degraded_shard_reads": 0}, stage_s=stage)
+    host = port.unpack_shard(payload, spec["tensors"])
+    for name, want in tree.items():
+        got = out[name]
+        assert (got.dtype, got.shape, got.device) == \
+            (want.dtype, want.shape, CPU), name
+        raw = got.reshape(-1).view(torch.uint8).numpy().tobytes()
+        assert raw == want.reshape(-1).view(torch.uint8).numpy().tobytes()
+        assert raw == host[name].tobytes(), name
+    assert out["bfloat16/b"].dtype == torch.bfloat16
+    assert host["bfloat16/b"].dtype == np.dtype("V2")
+    assert stage["bounce"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float8_e5m2],
+                         ids=_name)
+async def test_device_restore_refuses_v1_and_f1(tmp_path, dtype):
+    """``"<V1"`` and ``"<f1"`` name no single type: the device restore
+    refuses them (the reference cannot read them back either)."""
+    bits = torch.arange(64, dtype=torch.uint8).view(dtype)
+    client, spec, _ = _local_spec(tmp_path, {"w": bits})
+    with pytest.raises(ValueError, match=port.RAW_DTYPES[dtype]):
+        await port.restore_shard_device(HbmReader(client, [CPU]), client,
+                                        spec, CPU, {"degraded_shard_reads": 0})
 
 
 async def test_device_restore_rejects_unaligned_blocks(tmp_path):
@@ -257,6 +393,90 @@ async def test_reference_saves_port_restores_host_and_device(tmp_path):
             await mgr.read_manifest(2)
         with pytest.raises(port.CheckpointNotFoundError):
             await mgr.restore_shard(manifest, 5)
+    finally:
+        await c.stop()
+
+
+async def test_bf16_checkpoints_cross_both_packages(tmp_path):
+    """The reference saves a ``jnp.bfloat16`` leaf and the port restores
+    it as ``torch.bfloat16``, bit-exact; the port saves a torch bf16 tree,
+    the reference's host restore gives ``|V2`` arrays of the same bytes and
+    its content-ETag probe finds the port's files durable."""
+    import jax.numpy as jnp
+
+    c, client = await _ready(tmp_path)
+    try:
+        rng = np.random.default_rng(11)
+        bits = rng.integers(0, 1 << 16, 3001, dtype=np.uint16)
+        f4 = rng.standard_normal(513, dtype=np.float32)
+        base = "/ckpt/bf16"
+        saver = ref.CheckpointManager(client, base, num_shards=1, ec=(2, 1))
+        await saver.save(1, {0: {
+            "model": jnp.asarray(bits.view(ml_dtypes.bfloat16)),
+            "params": jnp.asarray(f4), "step": np.asarray(1, np.int64)}})
+        mgr = _port_mgr(client, base, num_shards=1, ec=(2, 1))
+        dev = (await mgr.restore(1, device=CPU))[0]
+        assert dev["model"].dtype == torch.bfloat16
+        assert np.array_equal(dev["model"].view(torch.uint16).numpy(), bits)
+        assert np.array_equal(dev["params"].numpy(), f4)
+        host = (await mgr.restore(1))[0]
+        _assert_tree_equal(host, (await saver.restore(1))[0])
+        assert host["model"].dtype == np.dtype("V2")
+
+        torch_tree = {"model": torch.from_numpy(bits.copy())
+                      .view(torch.bfloat16),
+                      "params": torch.from_numpy(f4.copy())}
+        await mgr.save(2, {0: torch_tree})
+        got = (await saver.restore(2))[0]
+        assert got["model"].dtype == np.dtype("V2")
+        assert got["model"].tobytes() == bits.tobytes()
+        assert got["params"].tobytes() == f4.tobytes()
+        dev = (await mgr.restore(2, device=CPU))[0]
+        assert torch.equal(dev["model"].view(torch.uint16),
+                           torch_tree["model"].view(torch.uint16))
+        await saver.save(2, {0: {"model": bits.view(ml_dtypes.bfloat16),
+                                 "params": f4}})
+        assert saver.stats["shards_skipped"] == 2  # .bin + .ec
+    finally:
+        await c.stop()
+
+
+async def test_device_restore_keeps_the_widths_the_reference_narrows(
+        tmp_path):
+    """A deliberate difference: under JAX's default config the reference's
+    device restore narrows 8-byte tensors to 32 bits (``jax.device_put``);
+    the port's keeps each at its saved width, bit-exact with
+    ``unpack_shard``."""
+    import jax
+
+    from tpudfs.tpu.hbm_reader import HbmReader as RefHbmReader
+
+    assert not jax.config.jax_enable_x64  # JAX's default
+    c, client = await _ready(tmp_path)
+    try:
+        rng = np.random.default_rng(12)
+        tree = {"step": np.asarray(1000, np.int64),
+                "i8": rng.integers(-1000, 1000, 33, dtype=np.int64),
+                "f8": rng.standard_normal(33),
+                "c16": rng.standard_normal(9) + 1j * rng.standard_normal(9)}
+        base = "/ckpt/x64"
+        jdev = jax.devices()[0]
+        saver = ref.CheckpointManager(client, base, num_shards=1, ec=None,
+                                      reader=RefHbmReader(client, [jdev]))
+        await saver.save(1, {0: tree})
+        narrowed = (await saver.restore(1, device=jdev))[0]
+        assert {k: np.asarray(v).dtype.str for k, v in narrowed.items()} == \
+            {"step": "<i4", "i8": "<i4", "f8": "<f4", "c16": "<c8"}
+        for k, v in narrowed.items():
+            assert np.array_equal(np.asarray(v), tree[k].astype(v.dtype))
+        mgr = _port_mgr(client, base, num_shards=1, ec=None)
+        dev = (await mgr.restore(1, device=CPU))[0]
+        host = (await mgr.restore(1))[0]
+        for k, want in tree.items():
+            assert dev[k].dtype == port.torch_dtype(want.dtype.str)
+            assert dev[k].element_size() == want.itemsize
+            assert dev[k].numpy().tobytes() == host[k].tobytes() == \
+                want.tobytes(), k
     finally:
         await c.stop()
 

@@ -433,14 +433,16 @@ def test_ring_across_cards_matches_cpu(cuda_device):
 
 def _shard_layout(tmp_path, seed: int):
     """A small checkpoint shard (``chip_smoke.ckpt_state``: three fp32
-    states, an int64 step, an int8 tail) laid out as the manager saves it
-    (3x hot copy + RS(3,2) cold copy) in 64 KiB blocks; (client, spec, tree
-    on the CPU, metas)."""
+    states, the bf16 model, an int64 step, an int8 tail; and a complex64
+    tensor) laid out as the manager saves it (3x hot copy + RS(3,2) cold
+    copy) in 64 KiB blocks; (client, spec, tree on the CPU, metas)."""
     import chip_smoke
     from tpudfs_torch.common.checksum import crc32c
     from tpudfs_torch.gpu.checkpoint import pack_shard
 
     tree = chip_smoke.ckpt_state(30_011, seed, CPU)
+    gen = torch.Generator().manual_seed(seed)
+    tree["z"] = torch.randn(1001, dtype=torch.complex64, generator=gen)
     payload, specs = pack_shard(tree)
     stores, metas = chip_smoke.lay_out_shard(
         tmp_path, np.frombuffer(payload, dtype=np.uint8),
@@ -483,6 +485,10 @@ def test_restore_shard_device_on_card_matches_cpu(cuda_device, tmp_path,
     assert crc32c_cuda.crc32c_chunks_device.launches > before["chunks"]
     assert rs_cuda.gf_matmul_words.launches - before["gf"] == \
         (nblocks if degraded else 0)
+    # The bf16 weights and the complex64 tensor are 2- and 8-byte bounces
+    # into cuda:0.
+    assert (tree["model"].dtype, tree["z"].dtype) == (torch.bfloat16,
+                                                      torch.complex64)
     for name, want in tree.items():
         assert on_card[name].device == cuda_device
         for got in (on_card[name].cpu(), on_cpu[name]):
@@ -515,6 +521,7 @@ def test_restore_and_dataset_phases_on_card(cuda_device, tmp_path):
     r = chip_smoke.restore_path(cuda_device, params=200_003,
                                 block_size=1 << 20, workdir=tmp_path)
     assert r["exact"] and r["degraded_shard_reads"] == 0
+    assert r["tensors"]["model"] == ["<V2", [200_003]]
     assert r["flipped"]["rereads"] == 1
     assert r["degraded"]["degraded_shard_reads"] == 1
     assert all(r["launches"][k] > 0 for k in chip_smoke.PATH_KERNELS["restore"])

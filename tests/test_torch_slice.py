@@ -156,10 +156,12 @@ def test_restore_and_dataset_small_on_cpu(tmp_path):
     r = chip_smoke.restore_path(CPU, params=40_000, block_size=65536,
                                 workdir=tmp_path)
     # 3 x 160,000 B of fp32 states (aligned to 160,256), 13 int8 flags
-    # (512) and the int64 step: 8 blocks, the last not 512-aligned.
-    assert r["payload_bytes"] == 3 * 160_256 + 512 + 8
-    assert (r["blocks"], r["tail_block_bytes"]) == (8, 481_288 - 7 * 65536)
+    # (512), 80,000 B of bf16 weights (80,384) and the int64 step: 9
+    # blocks, the last not 512-aligned.
+    assert r["payload_bytes"] == 3 * 160_256 + 512 + 80_384 + 8
+    assert (r["blocks"], r["tail_block_bytes"]) == (9, 561_672 - 8 * 65536)
     assert r["tensors"]["step"] == ["<i8", []]
+    assert r["tensors"]["model"] == ["<V2", [40_000]]
     assert r["reduced"] == ["params_per_rank 40000 of 105312500",
                             "block_size 65536 of 67108864"]
     assert (r["rereads"], r["degraded_shard_reads"]) == (0, 0)
@@ -215,6 +217,23 @@ def test_restore_phase_rejects_a_wrong_tensor(tmp_path, monkeypatch):
 
     monkeypatch.setattr(chip_smoke, "restore_shard_device", flip)
     with pytest.raises(AssertionError, match="flags"):
+        chip_smoke.restore_path(CPU, params=4000, block_size=8192,
+                                workdir=tmp_path)
+
+
+def test_restore_phase_rejects_bf16_bits_under_another_dtype(tmp_path,
+                                                            monkeypatch):
+    """The restore phase fails loudly when the bf16 weights come back with
+    the right bits under another 2-byte dtype."""
+    real = chip_smoke.restore_shard_device
+
+    async def as_f16(*args, **kwargs):
+        out = await real(*args, **kwargs)
+        out["model"] = out["model"].view(torch.float16)
+        return out
+
+    monkeypatch.setattr(chip_smoke, "restore_shard_device", as_f16)
+    with pytest.raises(AssertionError, match="model is torch.float16"):
         chip_smoke.restore_path(CPU, params=4000, block_size=8192,
                                 workdir=tmp_path)
 

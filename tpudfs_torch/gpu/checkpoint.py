@@ -46,6 +46,11 @@ Deliberate differences from the reference:
 - ``restore(..., device=...)`` without a ``reader`` raises ``ValueError``
   (the reference quietly returns host arrays); ``device=None`` returns
   host numpy arrays, as the reference does.
+- The device restore gives every tensor back at its saved width and
+  dtype: 8-byte tensors stay 8-byte (the reference's ``jax.device_put``
+  narrows them to 32 bits under JAX's default config), and bf16
+  (``"<V2"``) comes back as ``torch.bfloat16`` (the reference's device
+  path refuses the void array it reads).
 """
 
 from __future__ import annotations
@@ -83,6 +88,18 @@ _ALIGN = 512
 #: its fallback is consulted; ``asyncio.TimeoutError`` and ``OSError`` too.
 _READ_ERROR_NAMES = ("DfsError", "ChecksumMismatchError", "BudgetExhausted")
 
+#: Torch dtypes numpy has no type for: the dtype string that ml_dtypes
+#: records for the type of the same name (``np.dtype(ml_dtypes.bfloat16)
+#: .str`` and so on), which is what the reference writes for a JAX array of
+#: it. Such a tensor is packed through an unsigned view of its bits.
+RAW_DTYPES = {
+    torch.bfloat16: "<V2",
+    torch.float8_e4m3fn: "<V1", torch.float8_e4m3fnuz: "<V1",
+    torch.float8_e5m2fnuz: "<V1", torch.float8_e8m0fnu: "<V1",
+    torch.float8_e5m2: "<f1",
+}
+_BITS = {1: torch.uint8, 2: torch.uint16}
+
 #: numpy dtype strings (``np.dtype(...).str``) of the payload format and
 #: the torch dtype each restores into.
 TORCH_DTYPES = {
@@ -90,6 +107,17 @@ TORCH_DTYPES = {
     "|i1": torch.int8, "|u1": torch.uint8, "|b1": torch.bool,
     "<i8": torch.int64, "<u8": torch.uint64, "<f8": torch.float64,
     "<f2": torch.float16, "<i2": torch.int16, "<u2": torch.uint16,
+    "<c8": torch.complex64, "<c16": torch.complex128,
+    # ml_dtypes' bfloat16 is its only 2-byte void type.
+    "<V2": torch.bfloat16,
+}
+
+#: Payload dtypes written for a tensor that no restore can name again.
+_UNREADABLE = {
+    "<V1": "ml_dtypes' 1-byte float8, float4 and int4 types all share "
+           "it, so it names none of them",
+    "<f1": "numpy cannot read it (np.dtype('<f1') fails), nor can the "
+           "reference's unpack_shard",
 }
 
 
@@ -98,8 +126,9 @@ def torch_dtype(dtype: str) -> torch.dtype:
     try:
         return TORCH_DTYPES[dtype]
     except KeyError:
-        raise ValueError(f"no torch dtype for payload dtype {dtype!r}") \
-            from None
+        why = _UNREADABLE.get(dtype)
+        raise ValueError(f"no torch dtype for payload dtype {dtype!r}"
+                         + (f": {why}" if why else "")) from None
 
 
 def _is_read_error(exc: BaseException) -> bool:
@@ -150,15 +179,29 @@ class TensorSpec:
         return cls(**d)
 
 
-def _as_numpy(value) -> np.ndarray:
-    if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
-    return np.asarray(value)
+def _as_numpy(value) -> tuple[np.ndarray, str]:
+    """``value`` as a numpy array of its bytes, and the payload dtype
+    string that records it."""
+    if not isinstance(value, torch.Tensor):
+        arr = np.asarray(value)
+        return arr, arr.dtype.str
+    t = value.detach()
+    raw = RAW_DTYPES.get(t.dtype)
+    if raw is not None:
+        return t.view(_BITS[t.element_size()]).cpu().numpy(), raw
+    try:
+        arr = t.cpu().numpy()
+    except TypeError:
+        raise TypeError(f"cannot checkpoint a {t.dtype} tensor: numpy and "
+                        "ml_dtypes have no dtype for it") from None
+    return arr, arr.dtype.str
 
 
 def pack_shard(tree: dict) -> tuple[bytes, list[TensorSpec]]:
     """Serialize a flat ``{name: array}`` tree (numpy arrays or torch
-    tensors) into one payload.
+    tensors) into one payload. A torch dtype numpy lacks (bf16, float8) is
+    written as its bits under ml_dtypes' dtype string (:data:`RAW_DTYPES`);
+    any other raises ``TypeError``.
 
     Deterministic: tensors in sorted name order at aligned offsets, so the
     same tree always produces byte-identical payloads — which is what makes
@@ -166,11 +209,11 @@ def pack_shard(tree: dict) -> tuple[bytes, list[TensorSpec]]:
     buf = bytearray()
     specs: list[TensorSpec] = []
     for name in sorted(tree):
-        arr = _as_numpy(tree[name])
+        arr, dtype = _as_numpy(tree[name])
         raw = arr.tobytes()
         offset = _align(len(buf))
         buf.extend(b"\x00" * (offset - len(buf)))
-        specs.append(TensorSpec(name=name, dtype=arr.dtype.str,
+        specs.append(TensorSpec(name=name, dtype=dtype,
                                 shape=tuple(arr.shape), offset=offset,
                                 size=len(raw), crc32c=crc32c(raw)))
         buf.extend(raw)
@@ -304,20 +347,22 @@ async def restore_shard_device(reader, client, spec: dict, device,
             out[t["name"]] = words[lo:lo + t["size"] // 4].view(dt) \
                 .reshape(t["shape"])
         else:
-            bounce.append(t)
+            bounce.append((t, dt))
     t1 = clock()
     _add(stage_s, "assemble", t1 - t0)
-    for t in bounce:
-        # Not a whole number of 32-bit words: through the host (rare —
-        # training state is overwhelmingly 4-byte).
+    for t, dt in bounce:
+        # Not a whole number of 32-bit words (bf16 weights among them):
+        # through the host, checked by the tensor's own CRC.
         lo = t["offset"] // 4
         raw = device_array_to_bytes(words[lo:lo + _align(t["size"]) // 4],
                                     t["size"])
         if crc32c(raw) != t["crc32c"]:
             raise ChecksumMismatchError(
                 f"tensor {t['name']!r} failed CRC on host bounce")
-        arr = np.frombuffer(bytearray(raw), dtype=np.dtype(t["dtype"]))
-        out[t["name"]] = torch.from_numpy(arr).reshape(t["shape"]).to(device)
+        # From the raw bits: numpy has no bf16, and a void array is no
+        # tensor.
+        bits = torch.from_numpy(np.frombuffer(bytearray(raw), dtype=np.uint8))
+        out[t["name"]] = bits.view(dt).reshape(t["shape"]).to(device)
     _add(stage_s, "bounce", clock() - t1)
     return {t["name"]: out[t["name"]] for t in spec["tensors"]}
 
