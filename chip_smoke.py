@@ -4,14 +4,15 @@
     python3 chip_smoke.py        # needs one CUDA card; exits 1 without one
 
 Builds the hand-written kernels from ``tpudfs_torch/gpu/csrc`` with nvcc
-(and the block I/O library from ``native/`` with g++), holds each kernel
+(and the native host engine from ``native/`` with g++), holds each kernel
 entry (per-chunk CRC32C, fused whole-block CRC32C, GF(2^8) matrix product)
 against its plain PyTorch twin on the card, drives the verified read into
 device memory at real size (the port's main path), times each entry at the
 main path's shapes, and checks every byte that comes out.
 
 Output (stdout): the card's ``nvidia-smi`` name and power limit, one JSON
-line per phase (``device``, ``build``, ``kernels_vs_plain``, ``read_path``,
+line per phase (``device``, ``build``, ``kernels_vs_plain``,
+``host_engine``, ``read_path``,
 ``ec_rebuild``, ``combined``, ``sweep``, ``infeed``, ``write``,
 ``ec_collective``, ``entry``, ``dryrun``, ``restore``, ``dataset``,
 ``bench``, ``kernel_times``, ``kernels``), the kernel table
@@ -19,6 +20,14 @@ line per phase (``device``, ``build``, ``kernels_vs_plain``, ``read_path``,
 side's shapes nested in it), and last
 ``{"ok": true, "device": {...}}``. Any mismatch raises: the run exits
 non-zero and prints no result.
+
+``host_engine``: the native host engine (``common/native.py``) over one
+seeded 64 MiB buffer: ``crc32c``, ``crc32c_chunks`` at 512 bytes, RS(3,2)
+and RS(6,3) ``encode`` and a ``decode`` of each with m shards lost, every
+result bit-exact with its numpy twin, each timed native and plain. Each
+phase after it reports the engine's calls (``engine_calls``, counted from
+0 just before it), and a phase that must use the engine fails without
+them (``PATH_ENGINE``).
 
 The read path: three replica stores laid out under ``build/`` in the
 chunkserver's on-disk format (3x replication at rest) holding a 1 GiB file
@@ -90,6 +99,9 @@ Then the training job's two reads:
   healthy twice, with one byte flipped in one hot replica, and with one
   block's every hot replica corrupt and shards 0 and 3 of every cold-copy
   block missing (every block rebuilt on the card); every tensor bit-exact;
+  the bounce's time split into its copies and its host CRC
+  (``bounce_copy``, ``bounce_crc``), the layout's into the hot copy, the
+  EC encode and the EC writes (``setup_split_s``);
 - ``dataset``: GPT-2 pretraining records (nanoGPT's block of 1,024 uint16
   tokens, batches of 12) from a 1 GiB 3x-replicated file through
   ``DfsRecordSource``, ``make_dataset`` and ``device_iterator``, a few
@@ -240,6 +252,22 @@ PATH_KERNELS = {
     "restore": ("crc32c_blocks", "crc32c_chunks", "gf256_matmul"),
     "dataset": (),
     "bench": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
+}
+#: The native host engine's entries each phase must call: ``host_engine``
+#: its CRC and GF(2^8) entries; the read path lays out its stores with the
+#: chunk CRCs and reads the degraded block's shards verified; the write
+#: group's members persist every replica with the chunk CRCs and the
+#: read-back reads them verified; the restore's bounce CRCs the bf16
+#: tensor, and its cold copy is encoded and written with the fused write
+#: (``restore_path`` also requires the CRC in each healthy run); the bench
+#: lays out its sets with the chunk CRCs and ``read_profile``'s ``disk``
+#: stage reads verified.
+PATH_ENGINE = {
+    "host_engine": ("crc32c", "crc32c_chunks", "gf256_matmul"),
+    "read_path": ("crc32c_chunks", "block_read_verify"),
+    "write": ("crc32c_chunks", "block_read_verify"),
+    "restore": ("crc32c", "gf256_matmul", "block_write"),
+    "bench": ("crc32c_chunks", "block_read_verify"),
 }
 #: The write phase: 3x replication (BASELINE.json's HA layout) on a
 #: 3-position ring, 4 blocks a position a round.
@@ -621,6 +649,89 @@ def _counted(run) -> dict:
     out = run()
     out["launches"] = launch_counts()
     return out
+
+
+def _engine_counted(run) -> dict:
+    """Run one phase with the host engine's call counts set to 0 just
+    before it; the phase's result gains them as ``engine_calls``."""
+    native.reset_calls()
+    out = run()
+    out["engine_calls"] = native.call_counts()
+    return out
+
+
+# ------------------------------------------------------ phase: host_engine
+
+#: The RS codes of the ``host_engine`` phase and the shards each decode
+#: loses: the checkpoint's cold copy (``CKPT_EC``, ``CKPT_LOST``) and the
+#: read path's degraded block.
+ENGINE_CODES = (((3, 2), (0, 3)), ((6, 3), (0, 2, 7)))
+
+
+def _best_s(fn, reps: int) -> tuple[object, float]:
+    """``fn()``'s result and its best wall time of ``reps`` calls."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return out, best
+
+
+def host_engine_phase(*, size: int = 64 * MiB, seed: int = 0,
+                      reps: int = 3) -> dict:
+    """The ``host_engine`` phase: over ``size`` seeded bytes, each entry
+    of the native host engine against its numpy twin, bit for bit, with
+    both rates (GB/s of input bytes; native the best of ``reps`` calls,
+    plain one call). Raises on any difference."""
+    from tpudfs_torch.common import checksum, erasure
+
+    data = np.random.default_rng(seed).integers(0, 256, size,
+                                                dtype=np.uint8)
+    rows = {}
+
+    def row(name, native_fn, plain_fn, nbytes: int, same) -> None:
+        got, native_s = _best_s(native_fn, reps)
+        want, plain_s = _best_s(plain_fn, 1)
+        if not same(got, want):
+            raise AssertionError(f"host_engine: {name} differs from its "
+                                 f"plain twin")
+        rows[name] = {"bytes": nbytes, "native_gbps": nbytes / native_s / 1e9,
+                      "plain_gbps": nbytes / plain_s / 1e9,
+                      "native_s": native_s, "plain_s": plain_s}
+
+    def plain_erasure(fn):
+        def run():
+            erasure._gf_matmul = erasure._gf_matmul_plain
+            try:
+                return fn()
+            finally:
+                erasure._gf_matmul = native_matmul
+        return run
+
+    native_matmul = erasure._gf_matmul
+    row("crc32c", lambda: checksum.crc32c(data),
+        lambda: checksum.crc32c_plain(data), size, int.__eq__)
+    row("crc32c_chunks_512", lambda: checksum.crc32c_chunks(data),
+        lambda: checksum.crc32c_chunks_plain(data), size, np.array_equal)
+    raw = data.tobytes()
+    for (k, m), lost in ENGINE_CODES:
+        enc = (lambda k=k, m=m: erasure.encode(raw, k, m))
+        row(f"encode_{k}_{m}", enc, plain_erasure(enc), size, list.__eq__)
+        shards = enc()
+        for j in lost:
+            shards[j] = None
+        dec = (lambda k=k, m=m, shards=shards:
+               erasure.decode(shards, k, m, size))
+        nbytes = k * erasure.shard_len(size, k)
+        row(f"decode_{k}_{m}_lost_{'_'.join(map(str, lost))}", dec,
+            plain_erasure(dec), nbytes, bytes.__eq__)
+        if dec() != raw:
+            raise AssertionError(f"host_engine: RS({k},{m}) decode is not "
+                                 f"the data")
+    return {"phase": "host_engine", "seed": seed, "bytes": size,
+            "library": str(native.library_path().relative_to(REPO)),
+            "exact": True, "rows": rows}
 
 
 def read_path(device: torch.device, *, block_size: int = 64 * MiB,
@@ -1160,24 +1271,38 @@ def ckpt_state(n: int, seed: int, device: torch.device) -> dict:
 
 
 def lay_out_shard(workdir: Path, payload: np.ndarray, *, block_size: int,
-                  hot: str, cold: str, ec: tuple = CKPT_EC) -> tuple:
+                  hot: str, cold: str, ec: tuple = CKPT_EC,
+                  setup_s: dict | None = None) -> tuple:
     """A shard payload as the checkpoint manager saves it: a 3x-replicated
     hot copy at ``hot`` and an RS(k,m) cold copy at ``cold`` (the host
-    encoder; shard j of every block on store j). Returns (stores, metas)."""
+    encoder; shard j of every block on store j). Returns (stores, metas);
+    ``setup_s`` (optional) gains the wall seconds of the ``hot_copy``, the
+    ``ec_encode`` and the ``ec_writes``."""
     k, m = ec
+    clock = time.perf_counter
+    parts = dict.fromkeys(("hot_copy", "ec_encode", "ec_writes"), 0.0)
+    t0 = clock()
     addrs, stores, handles = layout.stores(workdir, max(3, k + m))
     metas = {hot: layout.write_replicated(handles, addrs, hot, payload,
                                           block_size, tag="ckpt_hot")}
+    parts["hot_copy"] = clock() - t0
     blocks = []
     for i, off in enumerate(range(0, len(payload), block_size)):
         piece = payload[off : off + block_size]
         bid = f"blk_ckpt_ec_{i}"
-        for j, shard in enumerate(encode(piece, k, m)):
-            handles[addrs[j]].write(bid, shard, native.crc32c_chunks(shard))
+        t0 = clock()
+        shards = encode(piece, k, m)
+        t1 = clock()
+        for j, shard in enumerate(shards):
+            handles[addrs[j]].write(bid, shard)
+        parts["ec_encode"] += t1 - t0
+        parts["ec_writes"] += clock() - t1
         crc = metas[hot]["blocks"][i]["checksum_crc32c"]
         blocks.append(layout.block_meta(bid, len(piece), addrs[: k + m], crc,
                                         k=k, m=m))
     metas[cold] = {"path": cold, "size": len(payload), "blocks": blocks}
+    if setup_s is not None:
+        setup_s.update(parts)
     return stores, metas
 
 
@@ -1220,8 +1345,10 @@ async def _restore_run(reader: HbmReader, client: LocalClient, spec: dict,
     """One ``restore_shard_device`` call, timed from the call to the last
     tensor (ended by a synchronize), then checked against ``tree``."""
     stats = {"degraded_shard_reads": 0}
-    stage = dict.fromkeys(("read", "combined_crc", "assemble", "bounce"), 0.0)
+    stage = dict.fromkeys(("read", "combined_crc", "assemble", "bounce",
+                           "bounce_copy", "bounce_crc"), 0.0)
     rereads, before = reader.rereads, launch_counts()
+    engine = native.call_counts()
     sync(device)
     t0 = time.perf_counter()
     out = await restore_shard_device(reader, client, spec, device, stats,
@@ -1232,7 +1359,8 @@ async def _restore_run(reader: HbmReader, client: LocalClient, spec: dict,
     return {"seconds": seconds, "gbps": spec["size"] / seconds / 1e9,
             "stage_s": stage, "rereads": reader.rereads - rereads,
             "degraded_shard_reads": stats["degraded_shard_reads"],
-            "launches": _delta(launch_counts(), before)}
+            "launches": _delta(launch_counts(), before),
+            "engine_calls": _delta(native.call_counts(), engine)}
 
 
 def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
@@ -1260,9 +1388,10 @@ def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
         hot = ckptpaths.shard_data_path(base, 1, 0)
         cold = ckptpaths.shard_ec_path(base, 1, 0)
         t0 = time.perf_counter()
+        setup_parts = {}
         stores, metas = lay_out_shard(
             tmp, np.frombuffer(payload, dtype=np.uint8),
-            block_size=block_size, hot=hot, cold=cold)
+            block_size=block_size, hot=hot, cold=cold, setup_s=setup_parts)
         setup_s = time.perf_counter() - t0
         spec = {"shard": 0, "path": hot, "ec_path": cold,
                 "size": len(payload), "crc32c": crc,
@@ -1281,6 +1410,10 @@ def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
                                                tree))
         finally:
             _flip_first_replica(client, mid)
+        no_crc = [r for r in runs if not r["engine_calls"]["crc32c"]]
+        if no_crc:
+            raise AssertionError(f"restore: the bounce's CRC did not run "
+                                 f"the native engine: {no_crc}")
         if flipped["rereads"] != 1 or flipped["degraded_shard_reads"]:
             raise AssertionError(f"restore with a flipped replica: {flipped}")
         for replica in range(3):
@@ -1313,7 +1446,8 @@ def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
             "payload_bytes": spec["size"], "block_size": block_size,
             "blocks": len(blocks), "tail_block_bytes": blocks[-1]["size"],
             "hot_replicas": 3, "ec": list(CKPT_EC), "ec_lost": list(CKPT_LOST),
-            "pack_s": pack_s, "setup_s": setup_s, **runs[1],
+            "pack_s": pack_s, "setup_s": setup_s,
+            "setup_split_s": setup_parts, **runs[1],
             "first_run": runs[0], "flipped": flipped, "degraded": degraded,
             "degraded_gbps": degraded["gbps"], "exact": True,
             "launches": counts}
@@ -1462,8 +1596,8 @@ def _nvidia_smi() -> str:
 
 
 def _build() -> dict:
-    """nvcc for each kernel source and g++ for the block I/O library, all
-    started together."""
+    """nvcc for each kernel source and g++ for the native host engine,
+    all started together; then every library loaded."""
     from concurrent.futures import ThreadPoolExecutor
 
     from tpudfs_torch.gpu import kernels
@@ -1474,14 +1608,16 @@ def _build() -> dict:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
-        blockio = pool.submit(build_native)
+        engine = pool.submit(build_native)
         info = kernels.build()
-        so, gxx_s = blockio.result()
+        so, gxx_s = engine.result()
     for name in info:
         kernels.lib(name)
     native.lib()
     return {"phase": "build", "seconds": time.perf_counter() - t0,
-            "blockio": {"so": str(so.relative_to(REPO)), "gxx_s": gxx_s},
+            "host_engine": {"so": str(so.relative_to(REPO)), "gxx_s": gxx_s,
+                            "sources": [str(p.relative_to(REPO))
+                                        for p in native.SOURCES]},
             "kernels": {
                 name: {"so": str(Path(i["so"]).relative_to(REPO)),
                        "nvcc_s": i["seconds"],
@@ -1903,14 +2039,16 @@ def main(argv=None) -> int:
     emit(_build())
     rng = np.random.default_rng(args.seed)
     emit(_kernels_vs_plain(device, rng))
-    result = read_path(device, seed=args.seed)
+    host = _engine_counted(lambda: host_engine_phase(seed=args.seed))
+    emit(host)
+    result = _engine_counted(lambda: read_path(device, seed=args.seed))
     ec_rebuild = result.pop("ec_rebuild")
     batched = [result.pop(name) for name in ("combined", "sweep", "infeed")]
     emit(result)
     emit(ec_rebuild)
     for phase in batched:
         emit(phase)
-    write = write_path(device, seed=args.seed)
+    write = _engine_counted(lambda: write_path(device, seed=args.seed))
     emit(write)
     ec = ec_collective(device, seed=args.seed)
     emit(ec)
@@ -1918,12 +2056,18 @@ def main(argv=None) -> int:
     emit(entry_run)
     dryrun = dryrun_phase(device)
     emit(dryrun)
-    restore = restore_path(device, seed=args.seed)
+    restore = _engine_counted(lambda: restore_path(device, seed=args.seed))
     emit(restore)
     dataset = _counted(lambda: dataset_path(device, seed=args.seed))
     emit(dataset)
-    bench_run = bench_phase(device)
+    bench_run = _engine_counted(lambda: bench_phase(device))
     emit(bench_run)
+    for phase in (host, result, write, restore, bench_run):
+        calls = phase["engine_calls"]
+        never = [k for k in PATH_ENGINE[phase["phase"]] if not calls[k]]
+        if never:
+            raise AssertionError(f"{phase['phase']}: host engine entries "
+                                 f"never called: {never}")
     by_path = {"read_path": result["launches"],
                **{p["phase"]: p["launches"]
                   for p in batched + [write, ec, entry_run, dryrun, restore,

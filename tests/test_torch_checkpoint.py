@@ -255,7 +255,8 @@ async def test_device_restore_every_dtype_on_local_client(tmp_path):
     out = await port.restore_shard_device(HbmReader(client, [CPU]), client,
                                           spec, CPU, stats, stage_s=stage)
     _assert_tree_equal(_as_numpy(out), tree)
-    assert set(stage) == {"read", "combined_crc", "assemble", "bounce"}
+    assert set(stage) == {"read", "combined_crc", "assemble", "bounce",
+                          "bounce_copy", "bounce_crc"}
     words = {out[n].untyped_storage().data_ptr()
              for n in ("w/f4", "opt/i4", "opt/u4")}
     assert len(words) == 1
@@ -304,6 +305,9 @@ async def test_device_restore_bf16_and_complex_on_local_client(tmp_path):
     assert out["bfloat16/b"].dtype == torch.bfloat16
     assert host["bfloat16/b"].dtype == np.dtype("V2")
     assert stage["bounce"] > 0
+    assert stage["bounce_crc"] > 0
+    assert stage["bounce"] == pytest.approx(stage["bounce_copy"]
+                                            + stage["bounce_crc"])
 
 
 @pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float8_e5m2],

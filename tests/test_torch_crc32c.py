@@ -68,6 +68,11 @@ def test_host_crc_copy_equals_reference(n):
         ref_checksum.crc32c(data, 0xDEADBEEF)
     np.testing.assert_array_equal(port_checksum.crc32c_chunks(data),
                                   ref_checksum.crc32c_chunks(data))
+    # The numpy twins, which the native library is held against.
+    assert port_checksum.crc32c_plain(data, 0xDEADBEEF) == \
+        ref_checksum.crc32c(data, 0xDEADBEEF)
+    np.testing.assert_array_equal(port_checksum.crc32c_chunks_plain(data),
+                                  ref_checksum.crc32c_chunks(data))
     half = n // 2
     a, b = data[:half], data[half:]
     assert port_checksum.crc32c_combine(

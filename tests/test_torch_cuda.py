@@ -298,18 +298,19 @@ def _on(parts):
 
 def test_native_chunk_crc_binding_equals_numpy():
     """The port's binding of the native ``tpudfs_crc32c_chunks`` (the write
-    group's staging CRC) against the numpy ``crc32c_chunks``, short last
-    chunks included. Needs no card."""
+    group's staging CRC) against the numpy twin ``crc32c_chunks_plain``,
+    short last chunks included. Needs no card."""
     from tpudfs_torch.common import checksum, native
 
     rng = np.random.default_rng(12)
     for n in (0, 1, 511, 512, 513, 4096 * 3 + 17, 1 << 20):
         data = rng.integers(0, 256, n, dtype=np.uint8)
-        want = checksum.crc32c_chunks(data)
+        want = checksum.crc32c_chunks_plain(data)
         np.testing.assert_array_equal(native.crc32c_chunks(data), want)
         np.testing.assert_array_equal(native.crc32c_chunks(data.tobytes()), want)
     np.testing.assert_array_equal(
-        native.crc32c_chunks(data, 4096), checksum.crc32c_chunks(data, 4096))
+        native.crc32c_chunks(data, 4096),
+        checksum.crc32c_chunks_plain(data, 4096))
 
 
 @pytest.mark.parametrize("n,poison", [(3, False), (4, True)])
@@ -495,6 +496,29 @@ def test_restore_shard_device_on_card_matches_cpu(cuda_device, tmp_path,
             assert got.dtype == want.dtype and got.shape == want.shape
             assert torch.equal(got.reshape(-1).view(torch.uint8),
                                want.reshape(-1).view(torch.uint8)), name
+
+
+def test_restore_bounce_crc_runs_the_native_engine_on_card(cuda_device,
+                                                          tmp_path):
+    """A bf16 tensor's host bounce into ``cuda:0`` is checked by the native
+    host engine's CRC (its counter rises; ``stage_s`` splits the bounce
+    into its copies and that CRC), bit-exact."""
+    from tpudfs_torch.common import native
+    from tpudfs_torch.gpu.checkpoint import restore_shard_device
+
+    client, spec, tree, _ = _shard_layout(tmp_path, seed=62)
+    native.reset_calls()
+    stage = {}
+    out = asyncio.run(restore_shard_device(
+        HbmReader(client, [cuda_device]), client, spec, cuda_device,
+        {"degraded_shard_reads": 0}, stage_s=stage))
+    torch.cuda.synchronize(cuda_device)
+    assert native.call_counts()["crc32c"] >= 2  # the bf16 and complex bounces
+    assert stage["bounce_crc"] > 0 and stage["bounce_copy"] > 0
+    assert out["model"].dtype == torch.bfloat16
+    assert out["model"].device == cuda_device
+    assert torch.equal(out["model"].cpu().view(torch.uint8),
+                       tree["model"].view(torch.uint8))
 
 
 def test_rs_3_2_decode_at_block_width_matches_plain(cuda_device):

@@ -18,7 +18,7 @@ import torch
 from tests.test_torch_hbm_reader import _cluster, _corrupt_first_replica, _rand
 from tpudfs.tpu import hbm_reader as ref
 from tpudfs_torch.common import native
-from tpudfs_torch.common.checksum import crc32c
+from tpudfs_torch.common.checksum import crc32c_plain
 from tpudfs_torch.gpu import hbm_reader as port
 from tpudfs_torch.gpu import u32_to_numpy
 from tpudfs_torch.gpu.read_combiner import ReadCombiner
@@ -357,7 +357,7 @@ def test_combiner_defaults(tmp_path):
 
 def test_native_fill_matches_plain_fill_and_crc32c(tmp_path):
     """The native batched pread (with and without its fused CRC), the
-    plain Python fill and ``checksum.crc32c`` agree on sizes, bytes and
+    plain Python fill and ``checksum.crc32c_plain`` agree on sizes, bytes and
     CRCs: a full slot, a short file, an empty file, a missing file and a
     file longer than the slot."""
     stride = 8 * 512
@@ -387,7 +387,7 @@ def test_native_fill_matches_plain_fill_and_crc32c(tmp_path):
     np.testing.assert_array_equal(bare_buf, plain_buf)
     for i, name in enumerate(["full", "short", None, "empty", "long"]):
         data = contents[name][:stride] if name else b""
-        assert int(crcs[i]) == crc32c(data)
+        assert int(crcs[i]) == crc32c_plain(data)
         assert native_buf[i * stride : i * stride + len(data)].tobytes() == data
 
 

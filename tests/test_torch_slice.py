@@ -169,7 +169,10 @@ def test_restore_and_dataset_small_on_cpu(tmp_path):
         == (1, 0)
     assert r["degraded"]["degraded_shard_reads"] == 1
     assert set(r["stage_s"]) == {"read", "combined_crc", "assemble",
-                                 "bounce"}
+                                 "bounce", "bounce_copy", "bounce_crc"}
+    assert set(r["setup_split_s"]) == {"hot_copy", "ec_encode", "ec_writes"}
+    assert all(run["engine_calls"]["crc32c"] > 0
+               for run in (r, r["first_run"]))
     assert r["exact"] and r["degraded_gbps"] > 0
     no_launch = {"crc32c_chunks": 0, "crc32c_blocks": 0, "gf256_matmul": 0}
     assert r["launches"] == no_launch

@@ -1,10 +1,16 @@
 """On-disk block store: the chunkserver's format, byte for byte — the port's
-own copy of the Python paths of ``tpudfs/chunkserver/blockstore.py``.
+own copy of ``tpudfs/chunkserver/blockstore.py``'s data paths.
 
 - A block is a flat file named by its block id, with a ``.meta`` sidecar:
   a ``<4sHHII`` header (magic ``TPUM``, version 1, reserved, chunk size,
   count) followed by one little-endian uint32 CRC32C per 512-byte chunk.
-- Writes go through temp file + fsync + rename, data then sidecar.
+- Writes go through temp file + fsync + rename, data then sidecar: one
+  GIL-free call of the native host engine (``tpudfs_block_write``) that
+  also computes the chunk CRCs, unless the caller holds them already.
+- A verified read is one native call too (``tpudfs_block_read_verify``):
+  pread of the chunk span the range touches, every chunk's CRC checked
+  against the sidecar, the range copied out. Its status codes map to
+  exceptions as the reference maps them.
 - A block lives in the hot dir or, after tiering, the cold dir; lookups
   check hot first.
 
@@ -16,13 +22,16 @@ page cache into the chunk grid that goes to the device.
 
 from __future__ import annotations
 
+import ctypes
+import errno
 import os
 import struct
 from pathlib import Path
 
 import numpy as np
 
-from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c_chunks
+from tpudfs_torch.common import native
+from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE
 
 _META_MAGIC = b"TPUM"
 _META_VERSION = 1
@@ -96,11 +105,14 @@ class BlockStore:
         """Store block + sidecar durably; returns the per-chunk CRCs.
 
         ``checksums``: per-chunk CRCs the caller already holds for ``data``
-        (one layout written to several replicas CRCs the bytes once)."""
+        (one layout written to several replicas CRCs the bytes once); the
+        sidecar is then encoded from them and the bytes are not read
+        again. Without them, one native call CRCs and writes both."""
         _check_block_id(block_id)
         path = self.hot_dir / block_id
         if checksums is None:
-            checksums = crc32c_chunks(data, self.chunk_size)
+            return native.block_write(str(path), str(self._meta_path(path)),
+                                      data, self.chunk_size)
         write_durable(path, data)
         write_durable(self._meta_path(path), self._encode_meta(checksums))
         return checksums
@@ -175,40 +187,42 @@ class BlockStore:
 
     def read_verified(self, block_id: str, offset: int = 0,
                       length: int | None = None, *, into=None):
-        """pread + verify of exactly the chunks the range touches. A
-        whole-block read is checked on the bytes it returns; a partial
-        range re-reads its chunk span (it may end mid-chunk)."""
-        data = self.read(block_id, offset, length, into=into)
-        if not len(data):
-            return data
-        if offset == 0 and len(data) == self.size(block_id):
-            expected = self.read_meta(block_id)
-            actual = crc32c_chunks(data, self.chunk_size)
-            if len(actual) != len(expected) or \
-                    not np.array_equal(actual, expected):
-                raise BlockCorruptionError(
-                    f"block {block_id}: corrupt chunk in verified read"
-                )
-        else:
-            self.verify_range(block_id, offset, len(data))
-        return data
-
-    def verify_range(self, block_id: str, offset: int, length: int) -> None:
-        """Verify only the chunks overlapped by [offset, offset+length)."""
+        """pread + verify of exactly the chunks the range touches, in one
+        native call (the range is cut at the end of the block). ``into``:
+        as for :meth:`read`, the bytes land in ``into(nbytes)``, which is
+        returned."""
+        path = self.block_path(block_id)
+        if length is None or into is not None:
+            avail = max(self.size(block_id) - offset, 0)
+            length = avail if length is None else max(min(length, avail), 0)
+        if into is not None:
+            sink = into(length)
+            out = memoryview(sink).cast("B")
+            if len(out) < length:
+                raise ValueError(f"into({length}) gave {len(out)} bytes")
+        elif length > 0:
+            out = bytearray(length)
         if length <= 0:
-            return
-        expected = self.read_meta(block_id)
-        first = offset // self.chunk_size
-        last = (offset + length - 1) // self.chunk_size
-        if last >= len(expected):
+            return sink if into is not None else b""
+        rc = native.block_read_verify(
+            str(path), str(self._meta_path(path)), offset, length,
+            ctypes.addressof(ctypes.c_char.from_buffer(out)),
+            self.chunk_size)
+        if rc == native.ECORRUPT:
             raise BlockCorruptionError(
-                f"block {block_id}: range beyond sidecar ({last} >= {len(expected)})"
-            )
-        span = self.read(block_id, first * self.chunk_size,
-                         (last - first + 1) * self.chunk_size)
-        actual = crc32c_chunks(span, self.chunk_size)
-        want = expected[first : last + 1]
-        if len(actual) != len(want) or not np.array_equal(actual, want):
+                f"block {block_id}: corrupt chunk in verified read")
+        if rc == native.EBADMETA:
             raise BlockCorruptionError(
-                f"block {block_id}: corrupt chunk in range [{first},{last}]"
-            )
+                f"block {block_id}: unreadable/inconsistent sidecar")
+        if rc == native.ENOMETA:
+            raise BlockNotFoundError(f"no sidecar for block {block_id}")
+        if rc == -errno.ENOENT:
+            raise BlockNotFoundError(f"block {block_id} not found")
+        if rc < 0:
+            raise OSError(-rc, os.strerror(-rc), str(path))
+        if into is None:
+            return bytes(memoryview(out)[:rc])
+        if rc != length:
+            raise BlockCorruptionError(
+                f"block {block_id}: short read at {offset + rc}")
+        return sink

@@ -1,14 +1,19 @@
-"""CRC32C checksums, numpy only — the port's own copy of
-``tpudfs/common/checksum.py`` (tables, per-chunk CRC, GF(2) combine).
+"""CRC32C checksums — the port's own copy of ``tpudfs/common/checksum.py``
+(tables, per-chunk CRC, GF(2) combine).
 
 CRC32C = Castagnoli, reflected polynomial 0x82F63B78, init/final 0xFFFFFFFF.
 At rest every block carries one CRC32C per 512-byte chunk in its ``.meta``
 sidecar, and the whole-block CRC is recorded at CompleteFile.
 
-The reference dispatches to a native C++ library when one is built; this
-copy keeps only the numpy paths. ``crc32c`` folds the per-chunk CRCs with
-the vectorized combine table instead of one Python-level combine per chunk,
-so a 64 MiB block costs one numpy pass; the result is the same CRC.
+:func:`crc32c` and :func:`crc32c_chunks` run the native host engine
+(``native/crc32c.cc``, SSE4.2 ``crc32q``, through ``common.native``, which
+builds it at first use and raises when it cannot), as the reference does
+whenever its library is built. A contiguous buffer passes by pointer, with
+no copy. Their numpy bodies stay as the plain twins
+:func:`crc32c_plain` and :func:`crc32c_chunks_plain`, which the tests and
+``native.blocks_read_plain`` hold the engine against; ``crc32c_plain``
+folds the per-chunk CRCs with the vectorized combine table, one numpy pass
+a 64 MiB piece.
 """
 
 from __future__ import annotations
@@ -63,9 +68,17 @@ def contrib_table(n: int) -> tuple[np.ndarray, int]:
     return rows, int(inv_arr[0])
 
 
-def _as_u8(data) -> np.ndarray:
+def as_u8(data) -> np.ndarray:
+    """The bytes of a bytes-like object, a numpy array or a CPU tensor as
+    a contiguous uint8 array: a view where the input is contiguous, a
+    copy otherwise. A CUDA tensor raises."""
     if isinstance(data, np.ndarray):
         return np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+    if hasattr(data, "untyped_storage"):  # a torch tensor
+        import torch
+
+        return data.detach().contiguous().reshape(-1).view(torch.uint8) \
+            .numpy()
     return np.frombuffer(data, dtype=np.uint8)
 
 
@@ -82,8 +95,24 @@ def _chunk_crcs(arr: np.ndarray, chunk: int) -> np.ndarray:
 
 def crc32c_chunks(data, chunk: int = CHECKSUM_CHUNK_SIZE) -> np.ndarray:
     """Per-chunk CRC32C (uint32 array), as stored in the ``.meta`` sidecar;
-    the last chunk may be short."""
-    buf = _as_u8(data)
+    the last chunk may be short. One native call."""
+    from tpudfs_torch.common import native
+
+    return native.crc32c_chunks(data, chunk)
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C of ``data``, optionally continuing from a previous ``crc``.
+    One native call."""
+    from tpudfs_torch.common import native
+
+    return native.crc32c(data, crc)
+
+
+def crc32c_chunks_plain(data, chunk: int = CHECKSUM_CHUNK_SIZE
+                        ) -> np.ndarray:
+    """Plain numpy twin of :func:`crc32c_chunks`."""
+    buf = as_u8(data)
     n = len(buf)
     if n == 0:
         return np.zeros(0, dtype=np.uint32)
@@ -98,18 +127,18 @@ def crc32c_chunks(data, chunk: int = CHECKSUM_CHUNK_SIZE) -> np.ndarray:
     return out
 
 
-#: :func:`crc32c` folds in pieces of this many bytes (a 64 MiB block's
-#: chunk count), so a buffer of any length reuses one cached fold table
-#: instead of building a table as long as itself.
+#: :func:`crc32c_plain` folds in pieces of this many bytes (a 64 MiB
+#: block's chunk count), so a buffer of any length reuses one cached fold
+#: table instead of building a table as long as itself.
 _CRC_PIECE = 64 << 20
 
 
-def crc32c(data, crc: int = 0) -> int:
-    """CRC32C of ``data``, optionally continuing from a previous ``crc``."""
-    buf = _as_u8(data)
+def crc32c_plain(data, crc: int = 0) -> int:
+    """Plain numpy twin of :func:`crc32c`."""
+    buf = as_u8(data)
     for lo in range(0, len(buf), _CRC_PIECE):
         piece = buf[lo : lo + _CRC_PIECE]
-        whole = crc32c_fold(crc32c_chunks(piece), len(piece),
+        whole = crc32c_fold(crc32c_chunks_plain(piece), len(piece),
                             CHECKSUM_CHUNK_SIZE)
         crc = crc32c_combine(crc, whole, len(piece))
     return crc & 0xFFFFFFFF

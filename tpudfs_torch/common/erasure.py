@@ -1,12 +1,17 @@
-"""Reed-Solomon over GF(2^8), numpy only — the port's own copy of
+"""Reed-Solomon over GF(2^8) — the port's own copy of
 ``tpudfs/common/erasure.py`` (tables, matrix inverse, generator, encode,
 and the host decode of a block from any k shards).
 
 Construction: Vandermonde ``V[r][c] = r**c`` over GF(2^8) (poly 0x11D), made
 systematic by multiplying with the inverse of its top k x k block, so the
-first k shards are the data and any k rows stay independent. The device
-twin is the bit-plane kernel in ``tpudfs_torch/gpu/rs_cuda.py``, which is
-held bit-exact with :func:`encode`.
+first k shards are the data and any k rows stay independent. The matrix
+product over shard bytes runs the native host engine
+(``native/gf256.cc`` through ``common.native``, which raises when it
+cannot be built), as the reference does whenever its library is built;
+the numpy mul-table gather stays as its plain twin
+:func:`_gf_matmul_plain`. The device twin is the bit-plane kernel in
+``tpudfs_torch/gpu/rs_cuda.py``, which is held bit-exact with
+:func:`encode`.
 """
 
 from __future__ import annotations
@@ -83,7 +88,14 @@ def _matrix_invert(m: np.ndarray) -> np.ndarray:
 
 
 def _gf_matmul(mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
-    """out[r] = xor_c mat[r, c] * shards[c] (mul-table gather)."""
+    """out[r] = xor_c mat[r, c] * shards[c], one native call."""
+    from tpudfs_torch.common import native
+
+    return native.gf256_matmul(mat, shards)
+
+
+def _gf_matmul_plain(mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
+    """Plain numpy twin of :func:`_gf_matmul` (mul-table gather)."""
     _, _, mul = _tables()
     rows, cols = mat.shape
     out = np.zeros((rows, shards.shape[1]), dtype=np.uint8)

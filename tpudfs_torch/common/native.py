@@ -1,12 +1,15 @@
-"""The port's own binding of the native block I/O engine
-(``native/blockio.cc`` + ``native/crc32c.cc``).
+"""The port's own binding of the native host engine
+(``native/blockio.cc`` + ``native/crc32c.cc`` + ``native/gf256.cc``), the
+C++ path the reference's ``checksum``, ``erasure`` and ``blockstore``
+dispatch to.
 
-At first use the two sources are compiled with ``g++`` (the flags of
+At first use the three sources are compiled with ``g++`` (the flags of
 ``native/Makefile``) into one shared library under ``build/tpudfs_torch/``
-at the root of the checkout, named by a hash of both sources, so an edited
+at the root of the checkout, named by a hash of the sources, so an edited
 source is rebuilt and a stale library is never loaded. Several processes
 may race to build it: each writes its own temporary file and renames it
 into place. A failed build raises; there is no slower path to fall back on.
+Importing this module builds nothing.
 
 Bound entries (each with explicit ``argtypes`` and ``restype``):
 
@@ -16,13 +19,23 @@ Bound entries (each with explicit ``argtypes`` and ``restype``):
 - ``tpudfs_sweep_start`` / ``_wait`` / ``_release`` / ``_stop``: the sweep
   pump, a native producer thread filling a ring of round buffers (handles
   are int64: a C ``int`` would truncate the pointer);
-- ``tpudfs_crc32c``;
-- ``tpudfs_crc32c_chunks``: per-chunk CRC32C of one buffer
-  (:func:`crc32c_chunks`), the collective write group's staging CRC.
+- ``tpudfs_crc32c`` (:func:`crc32c`) and ``tpudfs_crc32c_chunks``
+  (:func:`crc32c_chunks`): SSE4.2 CRC32C of a buffer, whole or per chunk;
+- ``tpudfs_gf256_matmul`` (:func:`gf256_matmul`): a GF(2^8) matrix applied
+  to shard rows, RS encode and decode;
+- ``tpudfs_block_write`` (:func:`block_write`): chunk CRCs, temp file,
+  fsync and rename of a block and its sidecar in one call;
+- ``tpudfs_block_read_verify`` (:func:`block_read_verify`): pread of a
+  range and the CRC check of every chunk it touches in one call.
+
+Each of the five wrappers counts its calls in its ``calls`` attribute, as
+the kernel wrappers count launches (:func:`call_counts`, :func:`reset_calls`).
+ctypes releases the interpreter lock for the length of each native call.
 
 :func:`blocks_read_plain` is the plain Python twin of the batched read,
-with the same results; ``common.checksum.crc32c_chunks`` (numpy) is the
-plain twin of :func:`crc32c_chunks`.
+with the same results; ``common.checksum.crc32c_plain`` and
+``crc32c_chunks_plain`` and ``common.erasure._gf_matmul_plain`` (numpy) are
+the plain twins of the CRC and GF(2^8) entries.
 """
 
 from __future__ import annotations
@@ -37,15 +50,20 @@ from pathlib import Path
 
 import numpy as np
 
-from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c
+from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, as_u8, crc32c_plain
 
 REPO = Path(__file__).resolve().parents[2]
-SOURCES = [REPO / "native" / "blockio.cc", REPO / "native" / "crc32c.cc"]
+SOURCES = [REPO / "native" / name
+           for name in ("blockio.cc", "crc32c.cc", "gf256.cc")]
 BUILD_DIR = REPO / "build" / "tpudfs_torch"
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-Wextra"]
 
 _P, _U64, _I64 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64
-_SIZE = ctypes.c_size_t
+_SIZE, _STR = ctypes.c_size_t, ctypes.c_char_p
+#: Status codes of the block entries besides -errno (``native/blockio.cc``).
+EBADMETA = -200001
+ECORRUPT = -200002
+ENOMETA = -200003
 #: symbol -> (restype, argtypes)
 _SIGNATURES = {
     "tpudfs_blocks_read": (_I64, [_P, _U64, _U64, _P, _P]),
@@ -56,6 +74,10 @@ _SIGNATURES = {
     "tpudfs_sweep_stop": (None, [_I64]),
     "tpudfs_crc32c": (ctypes.c_uint32, [ctypes.c_uint32, _P, _SIZE]),
     "tpudfs_crc32c_chunks": (None, [_P, _SIZE, _SIZE, _P]),
+    "tpudfs_gf256_matmul": (None, [_P, _SIZE, _SIZE, _P, _SIZE, _P]),
+    "tpudfs_block_write": (_I64, [_STR, _STR, _P, _U64, ctypes.c_uint32, _P]),
+    "tpudfs_block_read_verify": (_I64, [_STR, _STR, _U64, _U64, _P,
+                                        ctypes.c_int, ctypes.c_uint32]),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -82,10 +104,10 @@ def build() -> Path:
         out = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
         raise RuntimeError(
-            f"cannot run g++ to build the block I/O library: {e}") from None
+            f"cannot run g++ to build the native host engine: {e}") from None
     if out.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed building the block I/O library:\n"
+        raise RuntimeError(f"g++ failed building the native host engine:\n"
                            f"{out.stdout}{out.stderr}")
     os.replace(tmp, so)
     return so
@@ -131,24 +153,93 @@ def blocks_read(paths: list[str], stride: int, out_ptr: int, *,
     return sizes, None
 
 
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C of a bytes-like object, a numpy array or a CPU tensor,
+    continuing from ``crc``; a contiguous buffer passes by pointer."""
+    buf, handle = as_u8(data), lib()
+    crc32c.calls += 1
+    return int(handle.tpudfs_crc32c(crc & 0xFFFFFFFF, buf.ctypes.data,
+                                    len(buf)))
+
+
 def crc32c_chunks(data, chunk: int = CHECKSUM_CHUNK_SIZE) -> np.ndarray:
     """Per-chunk CRC32C (uint32, the last chunk may be short) of a
-    bytes-like object or a contiguous numpy array, in one native call that
-    runs without the interpreter lock. Same results as the numpy
-    ``common.checksum.crc32c_chunks``."""
-    if isinstance(data, np.ndarray):
-        if not data.flags.c_contiguous:
-            raise ValueError("crc32c_chunks needs a contiguous array")
-        buf = data.reshape(-1).view(np.uint8)
-    else:
-        buf = np.frombuffer(data, dtype=np.uint8)
+    bytes-like object, a numpy array or a CPU tensor, in one native call."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    buf, handle = as_u8(data), lib()
     out = np.empty(-(-len(buf) // chunk), dtype=np.uint32)
+    crc32c_chunks.calls += 1
     if len(buf):
-        lib().tpudfs_crc32c_chunks(buf.ctypes.data, len(buf), chunk,
-                                   out.ctypes.data)
+        handle.tpudfs_crc32c_chunks(buf.ctypes.data, len(buf), chunk,
+                                    out.ctypes.data)
     return out
+
+
+def gf256_matmul(mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
+    """``out[r] = xor_c mat[r, c] * shards[c]`` over GF(2^8): a (rows,
+    cols) uint8 matrix applied to (cols, n) uint8 shard rows."""
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    shards = np.ascontiguousarray(shards, dtype=np.uint8)
+    rows, cols = mat.shape
+    if shards.ndim != 2 or shards.shape[0] != cols:
+        raise ValueError(f"a ({rows}, {cols}) matrix cannot take shards of "
+                         f"shape {shards.shape}")
+    out = np.empty((rows, shards.shape[1]), dtype=np.uint8)
+    row_ptrs = (ctypes.c_void_p * cols)(
+        *(shards.ctypes.data + c * shards.strides[0] for c in range(cols)))
+    out_ptrs = (ctypes.c_void_p * rows)(
+        *(out.ctypes.data + r * out.strides[0] for r in range(rows)))
+    handle = lib()
+    gf256_matmul.calls += 1
+    handle.tpudfs_gf256_matmul(mat.ctypes.data, rows, cols, row_ptrs,
+                               shards.shape[1], out_ptrs)
+    return out
+
+
+def block_write(data_path: str, meta_path: str, data,
+                chunk: int) -> np.ndarray:
+    """Chunk CRCs, then ``<path>.tmp``, fsync and rename for the block and
+    its sidecar; returns the chunk CRCs. Raises OSError on -errno."""
+    buf, handle = as_u8(data), lib()
+    out = np.empty(-(-len(buf) // chunk), dtype=np.uint32)
+    block_write.calls += 1
+    rc = handle.tpudfs_block_write(data_path.encode(), meta_path.encode(),
+                                   buf.ctypes.data, len(buf), chunk,
+                                   out.ctypes.data if len(out) else None)
+    if rc < 0:
+        raise OSError(-rc, os.strerror(-rc), data_path)
+    return out
+
+
+def block_read_verify(data_path: str, meta_path: str, offset: int,
+                      length: int, out_ptr: int, chunk: int) -> int:
+    """pread ``length`` bytes at ``offset`` into ``out_ptr`` after checking
+    the CRC of every chunk the range touches against the sidecar, whose
+    chunk size must be ``chunk``. Returns the bytes copied (the range is cut
+    at the end of the block), or :data:`EBADMETA`, :data:`ECORRUPT`,
+    :data:`ENOMETA` or -errno."""
+    handle = lib()
+    block_read_verify.calls += 1
+    return int(handle.tpudfs_block_read_verify(
+        data_path.encode(), meta_path.encode(), offset, length, out_ptr, 1,
+        chunk))
+
+
+#: The wrappers that count their calls.
+ENGINE = (crc32c, crc32c_chunks, gf256_matmul, block_write, block_read_verify)
+
+
+def call_counts() -> dict[str, int]:
+    return {fn.__name__: fn.calls for fn in ENGINE}
+
+
+def reset_calls() -> None:
+    for fn in ENGINE:
+        fn.calls = 0
+
+
+reset_calls()
 
 
 def blocks_read_plain(paths: list[str], stride: int, out: np.ndarray, *,
@@ -169,5 +260,5 @@ def blocks_read_plain(paths: list[str], stride: int, out: np.ndarray, *,
             np.frombuffer(data, np.uint8)
         sizes[i] = len(data)
         if crcs is not None:
-            crcs[i] = crc32c(data)
+            crcs[i] = crc32c_plain(data)
     return sizes, crcs

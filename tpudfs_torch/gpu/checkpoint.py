@@ -298,7 +298,9 @@ async def restore_shard_device(reader, client, spec: dict, device,
 
     ``stage_s`` (optional) accumulates wall seconds: ``read`` (blocks into
     device memory, verified; failed attempts included), ``combined_crc``,
-    ``assemble`` (concatenation and views) and ``bounce``."""
+    ``assemble`` (concatenation and views) and ``bounce``, which is
+    ``bounce_copy`` (device to host, the host copy, the upload) plus
+    ``bounce_crc`` (the tensors' host CRCs)."""
     device = resolve_device(device)
     clock = time.perf_counter
     sources = [p for p in (spec.get("path"), spec.get("ec_path"))
@@ -350,20 +352,26 @@ async def restore_shard_device(reader, client, spec: dict, device,
             bounce.append((t, dt))
     t1 = clock()
     _add(stage_s, "assemble", t1 - t0)
+    crc_s = 0.0
     for t, dt in bounce:
         # Not a whole number of 32-bit words (bf16 weights among them):
         # through the host, checked by the tensor's own CRC.
         lo = t["offset"] // 4
         raw = device_array_to_bytes(words[lo:lo + _align(t["size"]) // 4],
                                     t["size"])
+        t2 = clock()
         if crc32c(raw) != t["crc32c"]:
             raise ChecksumMismatchError(
                 f"tensor {t['name']!r} failed CRC on host bounce")
+        crc_s += clock() - t2
         # From the raw bits: numpy has no bf16, and a void array is no
         # tensor.
         bits = torch.from_numpy(np.frombuffer(bytearray(raw), dtype=np.uint8))
         out[t["name"]] = bits.view(dt).reshape(t["shape"]).to(device)
-    _add(stage_s, "bounce", clock() - t1)
+    bounce_s = clock() - t1
+    _add(stage_s, "bounce", bounce_s)
+    _add(stage_s, "bounce_copy", bounce_s - crc_s)
+    _add(stage_s, "bounce_crc", crc_s)
     return {t["name"]: out[t["name"]] for t in spec["tensors"]}
 
 

@@ -48,7 +48,7 @@ import numpy as np
 
 from tpudfs_torch.chunkserver.ici_member import try_ici_write
 from tpudfs_torch.common import native
-from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c
+from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c_plain
 from tpudfs_torch.gpu import host_to_device, u32_to_numpy
 from tpudfs_torch.gpu.crc32c_cuda import WORDS_PER_CHUNK
 from tpudfs_torch.gpu.ici_replication import IciReplicator, _peer
@@ -56,7 +56,7 @@ from tpudfs_torch.gpu.ici_replication import IciReplicator, _peer
 logger = logging.getLogger(__name__)
 
 #: CRC32C of 512 zero bytes — the expected CRC of every padding slot.
-_ZERO_CHUNK_CRC = crc32c(b"\x00" * CHECKSUM_CHUNK_SIZE)
+_ZERO_CHUNK_CRC = crc32c_plain(b"\x00" * CHECKSUM_CHUNK_SIZE)
 #: The steps ``IciWriteGroup.stage_s`` times.
 STAGES = ("stage", "h2d", "replicate", "acks", "drain", "persist")
 
