@@ -14,8 +14,8 @@ Output (stdout): the card's ``nvidia-smi`` name and power limit, one JSON
 line per phase (``device``, ``build``, ``kernels_vs_plain``,
 ``host_engine``, ``read_path``,
 ``ec_rebuild``, ``combined``, ``sweep``, ``infeed``, ``write``,
-``ec_collective``, ``entry``, ``dryrun``, ``restore``, ``dataset``,
-``bench``, ``kernel_times``, ``kernels``), the kernel table
+``ec_collective``, ``entry``, ``dryrun``, ``restore``, ``cluster``,
+``dataset``, ``bench``, ``kernel_times``, ``kernels``), the kernel table
 ``{"kernels": [...]}`` (each row at the read path's shape, with the write
 side's shapes nested in it), and last
 ``{"ok": true, "device": {...}}``. Any mismatch raises: the run exits
@@ -107,6 +107,26 @@ Then the training job's two reads:
   ``DfsRecordSource``, ``make_dataset`` and ``device_iterator``, a few
   hundred batches, each checked against the source.
 
+Then the live cluster:
+
+- ``cluster``: 1 master and 5 chunkservers, each an OS process started
+  by the port's launcher (``tpudfs_torch.cluster``: the system's own
+  servers by module name, the chunkservers' block cache off), driven
+  through the port's own client (``tpudfs_torch.client.client``, 64 MiB
+  blocks, CRC-64 ETags) over the wire: a 1 GiB file of 16 x 64 MiB
+  blocks and the 1,000,003-byte file written at 3x, a 4-block RS(3,2)
+  file (write GB/s each); the three read paths into ``cuda:0`` (per
+  block with lazy verify and one ``confirm``, the combiner in rounds of
+  4, the sweep pump), once with every byte over the blockport and once
+  short-circuited off the chunkservers' disks, each checked byte for
+  byte; one flipped byte in one replica read each way (the device CRC
+  catches it on the short circuit, the chunkserver's sidecar verify over
+  the wire) and recovered; two of the chunkservers that hold data shards
+  of the EC file's first block SIGKILLed, and the EC file read back
+  bit-exact over the wire, every block that lost a data shard rebuilt
+  with at least one ``gf256_matmul`` launch. The process then holds no
+  module of the JAX package or of JAX.
+
 Then the bench:
 
 - ``bench``: ``tpudfs_torch.bench``'s local run at its full constants
@@ -117,8 +137,8 @@ Then the bench:
   ``read_profile`` (meta, disk, h2d, full, fused) and five ``sweep_lab``
   cold/warm pairs through the combiner's rounds of 16; then set 0 read
   once more and checked byte for byte. The remote half (writes, creates,
-  the gRPC and cache sweeps) needs the reference's servers:
-  ``tests/test_torch_cuda.py`` runs it.
+  the gRPC and cache sweeps, against a spawned cluster) is
+  ``python3 -m tpudfs_torch.bench``'s default run.
 
 Data is made from ``--seed`` with numpy (and with torch generators on the
 card for the checkpoint's state); the bench's bytes from its own seeds.
@@ -142,7 +162,8 @@ import numpy as np
 import torch
 
 from tpudfs_torch import bench, read_profile, sweep_lab
-from tpudfs_torch.client.local import DfsError, LocalClient
+from tpudfs_torch.ckpt_chaos import data_shard_holders
+from tpudfs_torch.client.local import DfsError, LocalClient, is_error_named
 from tpudfs_torch.chunkserver.blockstore import BlockStore
 from tpudfs_torch.common import ckptpaths, layout, native
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c, crc32c_fold
@@ -252,6 +273,7 @@ PATH_KERNELS = {
     "restore": ("crc32c_blocks", "crc32c_chunks", "gf256_matmul"),
     "dataset": (),
     "bench": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
+    "cluster": ("crc32c_blocks", "gf256_matmul"),
 }
 #: The native host engine's entries each phase must call: ``host_engine``
 #: its CRC and GF(2^8) entries; the read path lays out its stores with the
@@ -268,6 +290,7 @@ PATH_ENGINE = {
     "write": ("crc32c_chunks", "block_read_verify"),
     "restore": ("crc32c", "gf256_matmul", "block_write"),
     "bench": ("crc32c_chunks", "block_read_verify"),
+    "cluster": ("crc32c", "crc64nvme", "gf256_matmul"),
 }
 #: The write phase: 3x replication (BASELINE.json's HA layout) on a
 #: 3-position ring, 4 blocks a position a round.
@@ -1540,6 +1563,311 @@ def dataset_path(device: torch.device, *, file_bytes: int = 1 << 30,
             "gbps": steady_records * record / steady / 1e9, "exact": True}
 
 
+# ---------------------------------------------------------- phase: cluster
+
+#: The live cluster: 1 master and 5 chunkservers, so RS(3,2) puts its
+#: shards on distinct servers and can lose two (the JAX bench's reason for
+#: five, ``bench.py:270-272``).
+CLUSTER_CS = 5
+CLUSTER_EC = (3, 2)
+CLUSTER_EC_BLOCKS = 4
+#: The 1 GiB file: 16 blocks of the client's default 64 MiB.
+CLUSTER_BLOCKS = 16
+#: The phase's budget on the card (seconds): ``cut`` says why when the
+#: big file was written at 8 blocks instead.
+CLUSTER_BUDGET_S = 60.0
+
+
+def _foreign_modules() -> list[str]:
+    """Modules of the JAX package or of JAX in this process (the port must
+    load none)."""
+    return sorted(m for m in sys.modules
+                  if m == "tpudfs" or m.startswith("tpudfs.")
+                  or m.split(".")[0] in ("jax", "jaxlib"))
+
+
+async def _timed_put(client, path: str, data: np.ndarray, ec=None) -> float:
+    """One ``create_file``: logical GB/s."""
+    t0 = time.perf_counter()
+    await client.create_file(path, memoryview(data), ec=ec)
+    return len(data) / (time.perf_counter() - t0) / 1e9
+
+
+async def _cluster_pass(client, device, sources, *, local: bool) -> dict:
+    """The three read paths into ``device`` with the local short circuit
+    on or off (off: every byte crosses the blockport), each checked byte
+    for byte: per block with lazy verify and one ``confirm`` (the big, tail
+    and healthy EC files), the combiner in rounds of ``COMBINED_BATCH``,
+    and the sweep pump (which reads colocated replicas only: over the wire
+    every block takes its per-block fallback)."""
+    client.local_reads = local
+    local0 = client.local_read_blocks
+    out = {}
+    reader = HbmReader(client, [device])
+    sync(device)
+    t0 = time.perf_counter()
+    big = await reader.read_file_to_device_blocks("/smoke/big", verify="lazy")
+    sync(device)
+    read_s = time.perf_counter() - t0
+    tail = await reader.read_file_to_device_blocks("/smoke/tail",
+                                                   verify="lazy")
+    sync(device)
+    t0 = time.perf_counter()
+    ec = await reader.read_file_to_device_blocks("/smoke/ec", verify="lazy")
+    sync(device)
+    ec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    await reader.confirm(big + tail + ec)
+    confirm_s = time.perf_counter() - t0
+    if not all(b.verified for b in big + tail + ec) or reader.rereads:
+        raise AssertionError("cluster: a clean read did not verify")
+    for path, blocks in (("/smoke/big", big), ("/smoke/tail", tail),
+                         ("/smoke/ec", ec)):
+        _check_bytes(blocks, sources[path], path)
+    nbig = sum(b.size for b in big)
+    out["per_block"] = {"read_s": read_s, "gbps": nbig / read_s / 1e9,
+                        "confirm_s": confirm_s, "ec_read_s": ec_s,
+                        "ec_gbps": sum(b.size for b in ec) / ec_s / 1e9}
+    del big, tail, ec
+
+    meta = await client.get_file_info("/smoke/big")
+    comb_reader = HbmReader(client, [device], batch_reads=COMBINED_BATCH)
+    comb_reader.warm_batches(meta["blocks"][0]["size"] // CHECKSUM_CHUNK_SIZE)
+    comb = comb_reader._combiner(device)
+    sync(device)
+    t0 = time.perf_counter()
+    got = await comb_reader.read_file_to_device_blocks("/smoke/big",
+                                                       verify="lazy")
+    sync(device)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    await comb_reader.confirm(got)
+    confirm_s = time.perf_counter() - t0
+    if not all(b.verified for b in got) or comb_reader.rereads:
+        raise AssertionError("cluster: a combined read did not verify")
+    _check_bytes(got, sources["/smoke/big"], "/smoke/big")
+    out["combined"] = {"read_s": read_s, "gbps": nbig / read_s / 1e9,
+                       "confirm_s": confirm_s, "rounds": comb.rounds,
+                       "fused_blocks": comb.blocks,
+                       "stage_s": dict(comb.stage_s)}
+    del got
+
+    sweep_reader = HbmReader(client, [device])
+    paths = ["/smoke/big", "/smoke/tail"]
+    sync(device)
+    t0 = time.perf_counter()
+    got = await sweep_reader.sweep_paths_to_device(
+        paths, round_blocks=COMBINED_BATCH, ring=3)
+    sync(device)
+    read_s = time.perf_counter() - t0
+    nblocks = len(meta["blocks"])
+    if not all(b.verified for b in got):
+        raise AssertionError("cluster: the sweep returned an unverified block")
+    _check_bytes(got[:nblocks], sources["/smoke/big"], "/smoke/big")
+    _check_bytes(got[nblocks:], sources["/smoke/tail"], "/smoke/tail")
+    if local and sweep_reader.sweep_blocks != nblocks:
+        raise AssertionError(f"cluster: the pump served "
+                             f"{sweep_reader.sweep_blocks} of {nblocks}")
+    out["sweep"] = {"read_s": read_s,
+                    "gbps": (nbig + len(sources["/smoke/tail"])) / read_s / 1e9,
+                    "pump_blocks": sweep_reader.sweep_blocks,
+                    "stage_s": dict(sweep_reader.sweep_stage_s)}
+    out["local_read_blocks"] = client.local_read_blocks - local0
+    if not local and out["local_read_blocks"]:
+        raise AssertionError("cluster: a wire pass read a block off disk")
+    return out
+
+
+def _flip(cluster, addr: str, block_id: str, pos: int) -> str:
+    """Flip one byte of ``block_id``'s replica in the data dir of the
+    chunkserver at ``addr``; returns the file's path."""
+    cs = next(c for c in cluster.chunkservers if c.addr == addr)
+    path = BlockStore(cs.data_dir).block_path(block_id)
+    with open(path, "r+b") as f:
+        f.seek(pos)
+        byte = f.read(1)
+        f.seek(pos)
+        f.write(bytes([byte[0] ^ 0x40]))
+    return str(path)
+
+
+async def _cluster_tamper(client, cluster, device, sources) -> dict:
+    """One flipped byte in the first replica of a block, read each way:
+
+    - short circuit (block n/2): the replica is read off disk without the
+      host sidecar pass, so the device CRC (``crc32c_blocks`` at
+      ``confirm``) must flag it and the verified re-read recover it from
+      another replica;
+    - over the wire (block n/2 + 1): the chunkserver's own sidecar verify
+      must refuse the replica (``DATA_LOSS`` on a direct ``ReadBlock``),
+      and the client's read fail over to another replica.
+
+    Both reads must return the file's bytes."""
+    meta = await client.get_file_info("/smoke/big")
+    blocks = meta["blocks"]
+    size = blocks[0]["size"]
+    out = {}
+    for name, i, local in (("short_circuit", len(blocks) // 2, True),
+                           ("wire", len(blocks) // 2 + 1, False)):
+        block = blocks[i]
+        addr = block["locations"][0]
+        _flip(cluster, addr, block["block_id"], 12345)
+        client.local_reads = local
+        reader = HbmReader(client, [device])
+        layer = None
+        if not local:
+            try:
+                await client._data_call(addr, "ReadBlock", {
+                    "block_id": block["block_id"], "offset": 0, "length": 0},
+                    timeout=60.0)
+            except Exception as e:
+                if not is_error_named(e, "RpcError") \
+                        or e.code.name != "DATA_LOSS":
+                    raise
+                layer = "chunkserver sidecar verify (DATA_LOSS)"
+            else:
+                raise AssertionError("cluster: the chunkserver served the "
+                                     "flipped replica")
+        db = await reader.read_block_to_device(block, device, verify="lazy")
+        await reader.confirm([db])
+        if local:
+            if reader.rereads != 1:
+                raise AssertionError("cluster: the device CRC did not flag "
+                                     "the flipped replica")
+            layer = "device CRC32C at confirm (crc32c_blocks)"
+        elif reader.rereads:
+            raise AssertionError("cluster: the wire read returned the "
+                                 "flipped bytes")
+        want = sources["/smoke/big"][i * size : (i + 1) * size].tobytes()
+        if not db.verified or device_array_to_bytes(db.array, db.size) != want:
+            raise AssertionError(f"cluster: {name} tamper not recovered")
+        out[name] = {"block": block["block_id"], "replica": addr,
+                     "caught_by": layer, "recovered": True}
+    return out
+
+
+async def _cluster_degraded(client, cluster, device, sources) -> dict:
+    """SIGKILL the two chunkservers that hold data shards of the EC file's
+    first block (of its data-shard holders, the two holding the most data
+    shards over the file, as ``ckpt_chaos.rebuild_after_kills`` ranks
+    them), then read the EC file into ``device`` over the wire: bit-exact,
+    every block that lost a data shard rebuilt by the GF(2^8) decode."""
+    meta = await client.get_file_info("/smoke/ec")
+    first = meta["blocks"][0]
+    k = int(first["ec_data_shards"])
+    held = data_shard_holders([meta])
+    victims = sorted(first["locations"][:k], key=lambda a: (-held[a], a))[:2]
+    lost = sum(1 for b in meta["blocks"]
+               if set(b["locations"][: int(b["ec_data_shards"])])
+               & set(victims))
+    for cs in cluster.chunkservers:
+        if cs.addr in victims:
+            cs.kill()
+    client.local_reads = False
+    reader = HbmReader(client, [device])
+    launches = gf_matmul_words.launches
+    sync(device)
+    t0 = time.perf_counter()
+    got = await reader.read_file_to_device_blocks("/smoke/ec", verify="lazy")
+    sync(device)
+    read_s = time.perf_counter() - t0
+    await reader.confirm(got)
+    launches = gf_matmul_words.launches - launches
+    _check_bytes(got, sources["/smoke/ec"], "/smoke/ec")
+    if reader.ec_rebuilds != lost:
+        raise AssertionError(f"cluster: {lost} blocks lost a data shard and "
+                             f"{reader.ec_rebuilds} were rebuilt")
+    if device.type == "cuda" and launches < lost:
+        raise AssertionError(f"cluster: {lost} blocks lost a data shard and "
+                             f"the GF(2^8) kernel launched {launches} times")
+    present = tuple(i for i, a in enumerate(first["locations"])
+                    if a not in victims)[:k]
+    return {"victims": victims, "data_shards_held": dict(held),
+            "blocks_lost_data": lost, "rebuilt_blocks": reader.ec_rebuilds,
+            "gf256_launches": launches, "first_block_present": list(present),
+            "read_s": read_s,
+            "gbps": sum(b.size for b in got) / read_s / 1e9}
+
+
+def cluster_phase(device: torch.device, *, block_size: int = 64 * MiB,
+                  nblocks: int = CLUSTER_BLOCKS, tail_size: int = 1_000_003,
+                  ec_blocks: int = CLUSTER_EC_BLOCKS, seed: int = 0,
+                  workdir: Path | None = None) -> dict:
+    """The ``cluster`` phase: a live cluster of 1 master and ``CLUSTER_CS``
+    chunkserver processes (``tpudfs_torch.cluster.ProcessCluster``, the
+    chunkservers' block cache off, so every wire read comes off their
+    disks with their sidecar verify), driven through the port's own
+    ``Client`` (``block_size`` blocks, CRC-64 ETags): the writes (the big
+    file of ``nblocks`` blocks and the tail file at 3x, an RS(3,2) file of
+    ``ec_blocks`` blocks; logical GB/s), the three read paths over the wire
+    and short-circuited (:func:`_cluster_pass`), the tamper
+    (:func:`_cluster_tamper`), two SIGKILLs and the degraded read
+    (:func:`_cluster_degraded`). Raises on any mismatch or when a module of
+    the JAX package or of JAX is loaded."""
+    from tpudfs_torch.client.client import Client
+    from tpudfs_torch.cluster import ProcessCluster
+
+    root = Path(workdir) if workdir is not None else REPO / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cluster_", dir=root))
+    rng = np.random.default_rng(seed)
+    sources = {"/smoke/big": rng.integers(0, 256, nblocks * block_size,
+                                          dtype=np.uint8),
+               "/smoke/tail": rng.integers(0, 256, tail_size, dtype=np.uint8),
+               "/smoke/ec": rng.integers(0, 256, ec_blocks * block_size,
+                                         dtype=np.uint8)}
+    t_phase = time.perf_counter()
+    try:
+        with ProcessCluster(tmp, n_cs=CLUSTER_CS, cache_blocks=0) as cluster:
+            async def run() -> dict:
+                client = Client([cluster.master_addr], block_size=block_size,
+                                etag_mode="crc64")
+                try:
+                    t0 = time.perf_counter()
+                    write = {
+                        "big_gbps": await _timed_put(
+                            client, "/smoke/big", sources["/smoke/big"]),
+                        "tail_gbps": await _timed_put(
+                            client, "/smoke/tail", sources["/smoke/tail"]),
+                        "ec_gbps": await _timed_put(
+                            client, "/smoke/ec", sources["/smoke/ec"],
+                            ec=CLUSTER_EC)}
+                    write["seconds"] = time.perf_counter() - t0
+                    wire = await _cluster_pass(client, device, sources,
+                                               local=False)
+                    local = await _cluster_pass(client, device, sources,
+                                                local=True)
+                    tamper = await _cluster_tamper(client, cluster, device,
+                                                   sources)
+                    degraded = await _cluster_degraded(client, cluster,
+                                                       device, sources)
+                finally:
+                    await client.close()
+                return {"write": write, "wire": wire, "short_circuit": local,
+                        "tamper": tamper, "degraded": degraded}
+
+            out = asyncio.run(run())
+            start_s = cluster.start_s
+            pids = [p.pid for p in cluster.procs]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    foreign = _foreign_modules()
+    if foreign:
+        raise AssertionError(f"cluster: loaded {foreign}")
+    return {"phase": "cluster", "device": str(device), "seed": seed,
+            "masters": 1, "chunkservers": CLUSTER_CS, "server_pids": pids,
+            "block_size": block_size, "nblocks": nblocks,
+            "tail_size": tail_size, "ec": list(CLUSTER_EC),
+            "ec_blocks": ec_blocks, "replicas": 3, "etag_mode": "crc64",
+            "chunkserver_cache_blocks": 0, "start_s": start_s, **out,
+            "seconds": time.perf_counter() - t_phase,
+            "budget_s": CLUSTER_BUDGET_S,
+            "cut": None if nblocks == CLUSTER_BLOCKS else
+            f"big file cut to {nblocks} of {CLUSTER_BLOCKS} blocks by the "
+            f"caller",
+            "foreign_modules": foreign}
+
+
 # ------------------------------------------------------------ phase: bench
 
 
@@ -2022,6 +2350,48 @@ def _bench_kernel_times(device, rng, run, phase, table) -> None:
         rows[name][f"at_{key}"] = row
 
 
+def _cluster_kernel_times(device, rng, run, phase, table) -> None:
+    """Both kernels at the cluster phase's shapes, added to the
+    kernel_times phase and, nested, to the table's rows, each with the
+    cluster phase's launches: the fused CRC of one combiner round
+    (``COMBINED_BATCH`` blocks of the phase's block size) and of one block
+    (the per-block path), and the RS(3,2) decode that rebuilt the EC
+    file's first block from the shards that survived the kills (a (k, k)
+    matrix at one block's padded shard width; its bound counts k rows in
+    and k out)."""
+    launches = run["launches"]
+    wcontrib = host_to_device(word_contrib_table(), device)
+    c = run["block_size"] // CHECKSUM_CHUNK_SIZE
+    nb = COMBINED_BATCH
+    fold = fold_table_device(c, device)
+    words = device_words(rng, (nb * c, 128), device)
+    by_shape = {"cluster_round": ("crc32c_blocks", _timed_row(
+        device, lambda: crc32c_blocks_device(words, nb),
+        lambda: crc32c_blocks_plain(words, nb, wcontrib, inv_contrib(), fold),
+        _blocks_bytes(c, nb), launches["crc32c_blocks"], chunks=nb * c,
+        nblocks=nb))}
+    block = words[:c]
+    by_shape["cluster_block"] = "crc32c_blocks", _timed_row(
+        device, lambda: crc32c_blocks_device(block, 1),
+        lambda: crc32c_blocks_plain(block, 1, wcontrib, inv_contrib(), fold),
+        _blocks_bytes(c, 1), launches["crc32c_blocks"], chunks=c, nblocks=1)
+    del words, block
+    k, m = run["ec"]
+    w = pad_shard_len(-(-run["block_size"] // k)) // 4
+    present = tuple(run["degraded"]["first_block_present"])
+    dec = matrix_bits_device(decode_matrix(k, m, present), device)
+    shards = device_words(rng, (k, w), device)
+    by_shape["cluster_decode"] = "gf256_matmul", _timed_row(
+        device, lambda: gf_matmul_words(shards, dec),
+        lambda: gf_rows_plain(shards, dec), 2 * k * w * 4 + dec.numel() * 4,
+        launches["gf256_matmul"], words=w, matrix=[k, k],
+        present=list(present))
+    rows = {row["name"]: row for row in table}
+    for key, (name, row) in by_shape.items():
+        phase[f"{name}_{key}"] = row
+        rows[name][f"at_{key}"] = row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2058,11 +2428,14 @@ def main(argv=None) -> int:
     emit(dryrun)
     restore = _engine_counted(lambda: restore_path(device, seed=args.seed))
     emit(restore)
+    cluster = _engine_counted(lambda: _counted(
+        lambda: cluster_phase(device, seed=args.seed)))
+    emit(cluster)
     dataset = _counted(lambda: dataset_path(device, seed=args.seed))
     emit(dataset)
     bench_run = _engine_counted(lambda: bench_phase(device))
     emit(bench_run)
-    for phase in (host, result, write, restore, bench_run):
+    for phase in (host, result, write, restore, cluster, bench_run):
         calls = phase["engine_calls"]
         never = [k for k in PATH_ENGINE[phase["phase"]] if not calls[k]]
         if never:
@@ -2071,7 +2444,7 @@ def main(argv=None) -> int:
     by_path = {"read_path": result["launches"],
                **{p["phase"]: p["launches"]
                   for p in batched + [write, ec, entry_run, dryrun, restore,
-                                      dataset, bench_run]}}
+                                      cluster, dataset, bench_run]}}
     for path, counts in by_path.items():
         never = [k for k in PATH_KERNELS[path] if not counts[k]]
         if never:
@@ -2082,9 +2455,13 @@ def main(argv=None) -> int:
     _restore_kernel_times(device, rng, restore, phase, table)
     _entry_kernel_times(device, rng, entry_run, dryrun, phase, table)
     _bench_kernel_times(device, rng, bench_run, phase, table)
+    _cluster_kernel_times(device, rng, cluster, phase, table)
     emit(phase)
     emit({"phase": "kernels", "launches": counts, "by_path": by_path})
     emit({"kernels": table})
+    foreign = _foreign_modules()
+    if foreign:
+        raise AssertionError(f"the smoke loaded {foreign}")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

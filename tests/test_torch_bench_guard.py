@@ -4,8 +4,8 @@ line and exit 3 when no window completes, disarmed before the first
 tick), the refusal to run without a card, the two read probes
 (``read_profile``, ``sweep_lab``) over a tiny layout on the CPU, and the
 checkpoint bench (``run_ckpt``) on a ``MiniCluster`` of five
-chunkservers, two of which it kills. Counterpart of
-``tests/test_bench_guard.py``."""
+chunkservers, two of which it kills, through the reference's client and
+through the port's. Counterpart of ``tests/test_bench_guard.py``."""
 
 from __future__ import annotations
 
@@ -103,9 +103,16 @@ def test_read_probes_on_a_tiny_layout(tmp_path):
     assert sorted(colds)[1] == lab["cold"]["median"]
 
 
-@pytest.mark.parametrize("device", [None, "cpu"])
+@pytest.mark.parametrize("device,client", [
+    pytest.param(None, "reference", id="None"),
+    pytest.param("cpu", "reference", id="cpu"),
+    pytest.param(None, "port", id="None-port"),
+    pytest.param("cpu", "port", id="cpu-port"),
+])
 def test_ckpt_bench_restores_healthy_and_with_two_chunkservers_dead(
-        tmp_path, device):
+        tmp_path, device, client):
+    """``run_ckpt`` with the reference's client and with the port's
+    (``tpudfs_torch.client.client``), on the same kind of cluster."""
     if device is None and not torch.cuda.is_available():
         # The default device is the card: without one, run_ckpt refuses
         # before it reaches the cluster, and never restores to the host.
@@ -124,7 +131,8 @@ def test_ckpt_bench_restores_healthy_and_with_two_chunkservers_dead(
         import asyncio
         from pathlib import Path
         from tests.test_master_service import MiniCluster
-        from tpudfs.client.client import Client
+        from tpudfs.client.client import Client as RefClient
+        from tpudfs_torch.client.client import Client as PortClient
         from tpudfs_torch import bench
         bench.CKPT_TREE_KIB, bench.REPS = 64, 2
 
@@ -133,15 +141,23 @@ def test_ckpt_bench_restores_healthy_and_with_two_chunkservers_dead(
             await c.start()
             try:
                 await c.wait_out_of_safe_mode(await c.leader())
-                client = Client(list(c.masters), rpc_client=c.client,
-                                block_size=65536, etag_mode="crc64")
+                if {client!r} == "port":
+                    client = PortClient(list(c.masters), block_size=65536,
+                                        etag_mode="crc64")
+                else:
+                    client = RefClient(list(c.masters), rpc_client=c.client,
+                                       block_size=65536, etag_mode="crc64")
 
                 async def kill_two():
                     for i in (3, 4):
                         c.heartbeats[i].stop()
                         await c.chunkservers[i].stop()
 
-                return await bench.run_ckpt(client, kill_two, {device!r})
+                try:
+                    return await bench.run_ckpt(client, kill_two, {device!r})
+                finally:
+                    if {client!r} == "port":
+                        await client.close()
             finally:
                 await c.stop()
 

@@ -1,23 +1,23 @@
 """The port's hand-written CUDA kernels against their plain PyTorch twins,
 on the card. Each test takes the ``cuda_device`` fixture and skips, with
 its reason, on a host without a card: a CUDA kernel has no CPU or
-interpret mode. This file imports no jax; the one test that needs a
-cluster imports the reference's ``InprocCluster`` (masters and
-chunkservers, none of which imports JAX) inside its body. So the file also
-runs on a card host that has no JAX:
+interpret mode. This file imports no jax. The tests that need a cluster
+start one with the port's launcher (``tpudfs_torch.cluster``: the
+system's servers as processes) or import the reference's
+``InprocCluster`` or client (none of which imports JAX) inside their
+bodies. So the file also runs on a card host that has no JAX:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
 import asyncio
-import contextlib
-import signal
 
 import numpy as np
 import pytest
 import torch
 
 from tpudfs_torch.client.local import DfsError, LocalClient
+from tpudfs_torch.cluster import ProcessCluster
 from tpudfs_torch.gpu import host_to_device, u32_to_numpy
 from tpudfs_torch.gpu import crc32c_cuda, rs_cuda
 from tpudfs_torch.gpu.hbm_reader import HbmReader, device_array_to_bytes
@@ -676,80 +676,27 @@ def test_live_write_and_soak_on_card(cuda_device):
     print("LIVE_ON_CARD " + json.dumps(report), flush=True)
 
 
-@contextlib.contextmanager
-def _process_cluster(root, n_cs: int, cache_blocks: int):
-    """1 master and ``n_cs`` chunkservers, each its own OS process (as the
-    JAX package's ``bench.py:265-312`` spawns them: ``BLOCK_CACHE_SIZE`` of
-    ``cache_blocks``, the scrubber held off). Yields (master address,
-    chunkserver processes). The chunkservers load the reference's native
-    library: it is built first, as tests/conftest.py does on the CPU. Each
-    chunkserver process carries the address it registered as ``addr``."""
-    from tpudfs.common import native as ref_native
-    from tpudfs.testing.procs import free_port, spawn, terminate_all, wait_ready
-
-    ref_native.build_and_load()
-    logdir = root / "logs"
-    logdir.mkdir()
-    procs: list = []
-    env = {"JAX_PLATFORMS": "cpu"}  # the servers never touch a device
-    try:
-        maddr = f"127.0.0.1:{free_port()}"
-        spawn(procs, "master", logdir, "tpudfs.master",
-              "--port", maddr.rsplit(":", 1)[1],
-              "--data-dir", str(root / "m0"), "--http-port", "0", env=env)
-        wait_ready(logdir, "master")
-        for i in range(n_cs):
-            port = free_port()
-            spawn(procs, f"cs{i}", logdir, "tpudfs.chunkserver",
-                  "--port", str(port), "--data-dir", str(root / f"cs{i}"),
-                  "--masters", maddr, "--rack-id", f"rack-{i}",
-                  "--heartbeat-interval", "0.5", "--scrub-interval", "3600",
-                  "--http-port", "0",
-                  env={**env, "BLOCK_CACHE_SIZE": str(cache_blocks)})
-            wait_ready(logdir, f"cs{i}")
-            ready = (logdir / f"cs{i}.log").read_text().split("READY ", 1)
-            procs[-1].addr = ready[1].split()[0]
-        yield maddr, procs[1:]
-    finally:
-        terminate_all(procs)
-
-
 def test_bench_against_process_cluster_on_card(cuda_device, tmp_path):
-    """The port's bench, remote windows and all, against a live cluster:
-    1 master and 3 chunkservers, each its own OS process, the reference
-    ``Client`` at 1 MiB blocks with CRC-64 ETags, and ``rpc_call`` bound to
-    an ``RpcClient``; full constants, on ``cuda:0``. Prints one
+    """``python3 -m tpudfs_torch.bench``'s default run: the port's bench,
+    remote windows and all, against 1 master and 3 chunkserver processes
+    spawned by the port's launcher, through the port's own ``Client`` (1
+    MiB blocks, CRC-64 ETags), full constants, on ``cuda:0``. Prints one
     ``BENCH_ON_CARD`` JSON line: the result, the run's seconds and its
-    kernel launches."""
+    kernel launches; no module of the JAX package is loaded by the run."""
     import json
+    import sys
     import time
 
-    from tpudfs.client.client import Client
-    from tpudfs.common.rpc import RpcClient
     from tpudfs_torch import bench
     from tpudfs_torch.graft_entry import launch_counts
 
-    t0 = time.perf_counter()
-    with _process_cluster(tmp_path, 3, bench.CS_CACHE_BLOCKS) as (maddr, _):
-        # The reference's native library and the cluster's start.
-        setup_s = time.perf_counter() - t0
-
-        async def run() -> dict:
-            rpc = RpcClient()
-            try:
-                client = Client([maddr], rpc_client=rpc,
-                                block_size=bench.BLOCK_BYTES,
-                                etag_mode="crc64")
-                return await bench.run_against(client, cuda_device,
-                                               rpc_call=rpc.call)
-            finally:
-                await rpc.close()
-
-        before, t0 = launch_counts(), time.perf_counter()
-        result = asyncio.run(run())
-        seconds = time.perf_counter() - t0
-        after = launch_counts()
+    loaded = {m for m in sys.modules if m.split(".")[0] == "tpudfs"}
+    before, t0 = launch_counts(), time.perf_counter()
+    result = bench.run_remote(cuda_device, tmp_path)
+    seconds = time.perf_counter() - t0
+    after = launch_counts()
     launches = {k: after[k] - before[k] for k in after}
+    assert {m for m in sys.modules if m.split(".")[0] == "tpudfs"} == loaded
     assert result["remote"] is True and result["files"] == bench.FILES
     assert result["value"] > 0 and result["grpc_read_GBps"] > 0
     assert result["write_pipeline_GBps"] > 0 and result["cache_read_ops"] > 0
@@ -757,47 +704,81 @@ def test_bench_against_process_cluster_on_card(cuda_device, tmp_path):
     # The gRPC sweeps' fused rounds verify on the card, the write step
     # with the chunk CRCs, the scatter's encode with GF(2^8).
     assert all(n > 0 for n in launches.values()), launches
-    report = {"device": result["device"], "setup_s": setup_s,
-              "seconds": seconds, "launches": launches, "result": result}
+    report = {"device": result["device"],
+              "setup_s": result["cluster_start_s"], "seconds": seconds,
+              "launches": launches, "result": result}
     print("BENCH_ON_CARD " + json.dumps(report), flush=True)
 
 
+def test_bench_remote_windows_reference_and_port_clients_on_card(
+        cuda_device, tmp_path):
+    """The bench's remote windows on one cluster of 1 master and 3
+    chunkserver processes, through the reference's ``Client`` (P) and the
+    port's (C) in turns P, C, C, P, full constants, the file sets deleted
+    between runs. Prints one ``CLIENTS_ON_CARD`` JSON line with each run's
+    headline numbers."""
+    import json
+
+    from tpudfs.client.client import Client as RefClient
+    from tpudfs.common.rpc import RpcClient as RefRpcClient
+    from tpudfs_torch import bench
+    from tpudfs_torch.client.client import Client
+
+    keys = ("value", "warm_infeed_read_GBps", "grpc_read_GBps",
+            "write_pipeline_GBps", "meta_creates_per_s",
+            "meta_fused_creates_per_s", "cache_read_GBps", "confirm_s")
+    runs = []
+    with ProcessCluster(tmp_path, n_cs=3,
+                        cache_blocks=bench.CS_CACHE_BLOCKS) as cluster:
+        maddr = cluster.master_addr
+
+        async def run(which: str) -> dict:
+            if which == "reference":
+                rpc = RefRpcClient()
+                client = RefClient([maddr], rpc_client=rpc,
+                                   block_size=bench.BLOCK_BYTES,
+                                   etag_mode="crc64")
+            else:
+                client = Client([maddr], block_size=bench.BLOCK_BYTES,
+                                etag_mode="crc64")
+                rpc = client.rpc
+            try:
+                result = await bench.run_against(client, cuda_device,
+                                                 rpc_call=rpc.call)
+                for path in await client.list_files("/bench/"):
+                    await client.delete_file(path)
+                return result
+            finally:
+                await client.close()
+                await rpc.close()
+
+        for which in ("reference", "port", "port", "reference"):
+            result = asyncio.run(run(which))
+            assert result["remote"] is True and result["platform"] == "gpu"
+            runs.append({"client": which,
+                         **{k: result[k] for k in keys},
+                         "samples": result["debug_samples"]})
+    print("CLIENTS_ON_CARD " + json.dumps(runs), flush=True)
+
+
 def test_ckpt_bench_against_process_cluster_on_card(cuda_device, tmp_path):
-    """The port's checkpoint bench on a live cluster of 1 master and 5
-    chunkservers in their own processes, restores into device memory on
-    ``cuda:0`` (the default), two chunkservers SIGKILLed before the
-    degraded restores (as ``bench.py:485-616`` runs it). Prints one
+    """``python3 -m tpudfs_torch.bench --ckpt``: the port's checkpoint
+    bench on 1 master and 5 chunkserver processes spawned by the port's
+    launcher, through the port's ``Client``, restores into device memory
+    on ``cuda:0``, the last two chunkservers SIGKILLed before the degraded
+    restores (as ``bench.py:485-616`` runs it). Prints one
     ``CKPT_ON_CARD`` JSON line: the result, its seconds and its kernel
     launches."""
     import json
-    import signal
     import time
 
-    from tpudfs.client.client import Client
-    from tpudfs.common.rpc import RpcClient
     from tpudfs_torch import bench
     from tpudfs_torch.graft_entry import launch_counts
 
-    with _process_cluster(tmp_path, 5, bench.CS_CACHE_BLOCKS) as (maddr,
-                                                                  servers):
-        def kill_two() -> None:
-            for p in servers[-2:]:
-                p.send_signal(signal.SIGKILL)
-
-        async def run() -> dict:
-            rpc = RpcClient()
-            try:
-                client = Client([maddr], rpc_client=rpc,
-                                block_size=bench.BLOCK_BYTES,
-                                etag_mode="crc64")
-                return await bench.run_ckpt(client, kill_two)
-            finally:
-                await rpc.close()
-
-        before, t0 = launch_counts(), time.perf_counter()
-        result = asyncio.run(run())
-        seconds = time.perf_counter() - t0
-        after = launch_counts()
+    before, t0 = launch_counts(), time.perf_counter()
+    result = bench.run_remote_ckpt(cuda_device, tmp_path)
+    seconds = time.perf_counter() - t0
+    after = launch_counts()
     launches = {k: after[k] - before[k] for k in after}
     assert result["platform"] == "gpu" and result["restored_to"] == "cuda:0"
     for key in ("ckpt_save_GBps", "ckpt_restore_GBps",
@@ -810,9 +791,46 @@ def test_ckpt_bench_against_process_cluster_on_card(cuda_device, tmp_path):
     print("CKPT_ON_CARD " + json.dumps(report), flush=True)
 
 
-def _sigkill(proc) -> None:
-    proc.send_signal(signal.SIGKILL)
-    proc.wait(timeout=30)
+def test_ckpt_bench_reference_and_port_clients_on_card(cuda_device,
+                                                       tmp_path):
+    """``run_ckpt`` through the reference's ``Client`` (P) and the port's
+    (C) in turns P, C, C, P, each on a fresh cluster of 1 master and 5
+    chunkserver processes (its last two SIGKILLed), restores into
+    ``cuda:0``. Prints one ``CKPT_CLIENTS_ON_CARD`` JSON line with each
+    run's numbers."""
+    import json
+
+    from tpudfs.client.client import Client as RefClient
+    from tpudfs_torch import bench
+    from tpudfs_torch.client.client import Client
+
+    runs = []
+    for i, which in enumerate(("reference", "port", "port", "reference")):
+        with ProcessCluster(tmp_path / f"run{i}", n_cs=5,
+                            cache_blocks=bench.CS_CACHE_BLOCKS) as cluster:
+            maddr = cluster.master_addr
+
+            def kill_two() -> None:
+                for cs in cluster.chunkservers[-2:]:
+                    cs.kill()
+
+            async def run() -> dict:
+                cls = RefClient if which == "reference" else Client
+                client = cls([maddr], block_size=bench.BLOCK_BYTES,
+                             etag_mode="crc64")
+                try:
+                    return await bench.run_ckpt(client, kill_two,
+                                                cuda_device)
+                finally:
+                    await client.close()
+
+            result = asyncio.run(run())
+        runs.append({"client": which, **{
+            k: result[k] for k in (
+                "ckpt_save_GBps", "ckpt_save_win", "ckpt_restore_GBps",
+                "ckpt_restore_win", "ckpt_restore_degraded_GBps",
+                "plain_write_GBps")}})
+    print("CKPT_CLIENTS_ON_CARD " + json.dumps(runs), flush=True)
 
 
 #: Seconds until the process master drops a dead chunkserver: its 15 s
@@ -844,7 +862,7 @@ def _ckpt_chaos_parts(device, root, kib: int) -> dict:
 
         def kill(victims):
             for addr in victims:
-                _sigkill(by_addr[addr])
+                by_addr[addr].kill()
 
         return await cc.rebuild_after_kills(
             client, kill, base="/chaos/ec", kib=kib, reader=reader,
@@ -858,19 +876,19 @@ def _ckpt_chaos_parts(device, root, kib: int) -> dict:
         attempted, published = await cc.save_through_faults(
             mgr, steps=4, rng=rng, kib=kib,
             faults=lambda: cc.run_kill_plan(
-                plan, lambda a: _sigkill(by_addr[a])))
+                plan, lambda a: by_addr[a].kill()))
         out = await cc.settle_and_verify(mgr, attempted, published,
                                          kib=kib, device=device)
         return {"plan": plan, "attempted": attempted, **out}
 
     async def t10(client, servers, reader):
         async def kill_first():
-            _sigkill(servers[0])
+            servers[0].kill()
             await asyncio.sleep(MASTER_DROPS_DEAD_S)
 
         def kill_mid():
             for p in servers[1:3]:
-                _sigkill(p)
+                p.kill()
 
         return await cc.kill_mid_checkpoint(
             client, kill_first, kill_mid, base="/chaos/t10", kib=kib,
@@ -891,8 +909,10 @@ def _ckpt_chaos_parts(device, root, kib: int) -> dict:
                         ("kill_mid", t10)):
         part_root = root / name
         part_root.mkdir()
-        with _process_cluster(part_root, 5, bench.CS_CACHE_BLOCKS) as (
-                maddr, servers):
+        with ProcessCluster(part_root, n_cs=5,
+                            cache_blocks=bench.CS_CACHE_BLOCKS) as cluster:
+            maddr, servers = cluster.master_addr, cluster.chunkservers
+
             async def run() -> dict:
                 rpc = RpcClient()
                 try:
@@ -900,18 +920,8 @@ def _ckpt_chaos_parts(device, root, kib: int) -> dict:
                                     block_size=1 << 20, etag_mode="crc64",
                                     rpc_timeout=3.0, max_retries=8,
                                     local_reads=False)
-                    # Every chunkserver registered: RS(3,2) places on 5.
-                    deadline = asyncio.get_running_loop().time() + 60
-                    while True:
-                        try:
-                            await client.create_file("/probe", b"x",
-                                                     ec=(3, 2))
-                            await client.delete_file("/probe")
-                            break
-                        except Exception:
-                            if asyncio.get_running_loop().time() > deadline:
-                                raise
-                            await asyncio.sleep(0.3)
+                    # The launcher returns once every chunkserver is
+                    # registered: RS(3,2) places on 5.
                     return await stage(client, servers,
                                        HbmReader(client, [device]))
                 finally:

@@ -227,6 +227,7 @@ def _read(tmp_path):
 @pytest.mark.parametrize("entry,call", [
     ("crc32c", lambda tmp: checksum.crc32c(b"abc")),
     ("crc32c_chunks", lambda tmp: checksum.crc32c_chunks(b"abc")),
+    ("crc64nvme", lambda tmp: checksum.crc64nvme(b"abc")),
     ("gf256_matmul", lambda tmp: erasure.encode(b"abcdef", 2, 1)),
     ("block_write", _write),
     ("block_read_verify", _read),
@@ -246,9 +247,10 @@ def test_each_native_entry_counts_its_calls(tmp_path, entry, call):
 @pytest.mark.parametrize("call", [
     lambda tmp: checksum.crc32c(b"abc"),
     lambda tmp: checksum.crc32c_chunks(b"abc"),
+    lambda tmp: checksum.crc64nvme(b"abc"),
     lambda tmp: erasure.encode(b"abcdef", 2, 1),
     lambda tmp: blockstore.BlockStore(tmp).write("blk_x", b"abc"),
-], ids=["crc32c", "crc32c_chunks", "encode", "store_write"])
+], ids=["crc32c", "crc32c_chunks", "crc64nvme", "encode", "store_write"])
 def test_a_failed_build_raises_instead_of_running_numpy(monkeypatch, tmp_path,
                                                         call):
     bad = tmp_path / "broken.cc"
@@ -280,10 +282,10 @@ print("unbuilt")
 
 def test_engine_builds_every_source_into_the_ports_build_dir():
     assert [p.name for p in native.SOURCES] == ["blockio.cc", "crc32c.cc",
-                                                "gf256.cc"]
+                                                "gf256.cc", "crc64.cc"]
     lib = native.lib()
     assert lib._name == str(native.library_path())
     assert native.library_path().parent == REPO / "build" / "tpudfs_torch"
     for symbol in ("tpudfs_gf256_matmul", "tpudfs_block_write",
-                   "tpudfs_block_read_verify"):
+                   "tpudfs_block_read_verify", "tpudfs_crc64nvme"):
         assert callable(getattr(lib, symbol))

@@ -7,9 +7,12 @@ gather on a 9-position ring, the write step's parity), the graft entry
 points (the entry step with a poisoned CRC, the dryrun on 8 and 9
 positions), its checkpoint restore (healthy, a flipped replica, the whole
 shard from the RS(3,2) cold copy) and dataset infeed, the bench phase (the
-port's bench on local file sets and its two read probes), the rule that the port and the smoke script
+port's bench on local file sets and its two read probes), the cluster
+phase (a live process cluster through the port's own client, in an
+interpreter that refuses jax), the rule that the port and the smoke script
 import neither jax nor ``tpudfs`` and load no library the JAX package
-built, and the script's refusal to run without a card."""
+built, that only the port's client and launcher load ``grpc``, and the
+script's refusal to run without a card."""
 
 import ast
 import asyncio
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_nojax import run_without_jax
 from tpudfs_torch.client.local import LocalClient
 from tpudfs_torch.gpu.checkpoint import CheckpointManager
 from tpudfs_torch.gpu.hbm_reader import HbmReader
@@ -209,6 +213,67 @@ def test_bench_phase_small_on_cpu(tmp_path, monkeypatch):
     assert list(tmp_path.iterdir()) == []  # the layout is removed
 
 
+def test_cluster_phase_small_on_cpu(tmp_path):
+    """The cluster phase at a small size in an interpreter that refuses
+    jax: 1 master and 5 chunkserver processes, the writes, the three read
+    paths over the wire (no block read off disk) and short-circuited (the
+    pump serves every full block), both tampers caught by the layer named,
+    two chunkservers SIGKILLed and every EC block that lost a data shard
+    rebuilt; no ``tpudfs`` or ``jax`` module in the process."""
+    r = run_without_jax(f"""
+        from pathlib import Path
+        import torch
+        import chip_smoke
+        result = chip_smoke.cluster_phase(
+            torch.device("cpu"), block_size=65536, nblocks=4,
+            tail_size=20_003, ec_blocks=2, workdir=Path({str(tmp_path)!r}))
+    """, timeout=150)
+    assert r["loaded_jax"] == [] and r["foreign_modules"] == []
+    assert (r["masters"], r["chunkservers"]) == (1, 5)
+    assert len(r["server_pids"]) == 6
+    assert (r["nblocks"], r["ec"], r["ec_blocks"]) == (4, [3, 2], 2)
+    for key in ("big_gbps", "tail_gbps", "ec_gbps"):
+        assert r["write"][key] > 0, key
+    for mode in ("wire", "short_circuit"):
+        for path in ("per_block", "combined", "sweep"):
+            assert r[mode][path]["gbps"] > 0, (mode, path)
+    assert r["wire"]["local_read_blocks"] == 0
+    assert r["wire"]["sweep"]["pump_blocks"] == 0
+    assert r["short_circuit"]["sweep"]["pump_blocks"] == 4
+    assert r["short_circuit"]["local_read_blocks"] > 0
+    assert r["tamper"]["short_circuit"]["caught_by"].startswith("device CRC")
+    assert r["tamper"]["wire"]["caught_by"].startswith("chunkserver")
+    d = r["degraded"]
+    assert len(d["victims"]) == 2 and d["blocks_lost_data"] >= 1
+    assert d["rebuilt_blocks"] == d["blocks_lost_data"]
+    assert d["gf256_launches"] == 0  # the plain twin on the CPU
+    assert list(tmp_path.iterdir()) == []  # the cluster's dirs are removed
+
+
+def test_only_the_client_and_launcher_load_grpc():
+    """``import tpudfs_torch``, its device modules, the bench and the
+    launcher load no ``grpc``; the port's client does."""
+    code = """
+import sys
+import tpudfs_torch
+import tpudfs_torch.gpu.hbm_reader, tpudfs_torch.gpu.read_combiner
+import tpudfs_torch.gpu.checkpoint, tpudfs_torch.gpu.record_source
+import tpudfs_torch.gpu.wds, tpudfs_torch.gpu.infeed
+import tpudfs_torch.common.resilience, tpudfs_torch.common.sharding
+import tpudfs_torch.client.local, tpudfs_torch.bench, tpudfs_torch.cluster
+import chip_smoke
+before = sorted(m for m in sys.modules if m.split(".")[0] == "grpc")
+import tpudfs_torch.client.client
+after = "grpc" in sys.modules and "msgpack" in sys.modules
+print(before, after)
+"""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] True"
+
+
 def test_restore_phase_rejects_a_wrong_tensor(tmp_path, monkeypatch):
     """The restore phase fails loudly when a restored tensor differs."""
     real = chip_smoke.restore_shard_device
@@ -329,7 +394,10 @@ def test_port_sources_name_no_jax_or_tpudfs_import():
                  "gpu/record_source.py", "gpu/torch_data.py", "gpu/wds.py",
                  "graft_entry.py", "chunkserver/ici_member.py",
                  "ici_roulette.py", "bench.py", "read_profile.py",
-                 "sweep_lab.py", "common/layout.py", "ckpt_chaos.py"):
+                 "sweep_lab.py", "common/layout.py", "ckpt_chaos.py",
+                 "client/client.py", "cluster.py", "common/rpc.py",
+                 "common/resilience.py", "common/sharding.py",
+                 "common/blocknet.py", "common/writestream.py"):
         assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):
@@ -391,6 +459,11 @@ def test_entry_points_default_to_cuda(tmp_path):
             entry()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             dryrun_multichip(8)
+        from tpudfs_torch import bench
+        for run in (bench.run_remote, bench.run_remote_ckpt):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                run(None, tmp_path / "never")
+        assert not (tmp_path / "never").exists()  # nothing was spawned
         from tpudfs_torch import bench, ckpt_chaos, read_profile, sweep_lab
         reader = HbmReader(client, [CPU])
         for run in (bench.run_against(client, remote=False),

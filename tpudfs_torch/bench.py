@@ -1,7 +1,15 @@
 """The port's flagship bench: the counterpart of the JAX package's
 ``bench.py``, which stays as the reference's own.
 
-    python3 -m tpudfs_torch.bench        # on a card; exits 1 without one
+    python3 -m tpudfs_torch.bench          # 1 master + 3 chunkservers
+    python3 -m tpudfs_torch.bench --ckpt   # 1 master + 5, two SIGKILLed
+    python3 -m tpudfs_torch.bench --local  # stores on local disk only
+
+Each runs on a card and exits 1 without one. The first two spawn their
+cluster as OS processes (:class:`~tpudfs_torch.cluster.ProcessCluster`,
+as the JAX bench's ``_spawn_cluster`` does) and talk to it through the
+port's own :class:`~tpudfs_torch.client.client.Client` at 1 MiB blocks
+with CRC-64 ETags, with no ``tpudfs`` module in this process.
 
 Metric (BASELINE.json): "chunk read GB/s/host into device memory on 1 MB
 sequential chunk reads with 3x replication", with the 3x-replication write
@@ -21,13 +29,13 @@ beside it:
   1-position ring (the multi-position layout is the dryrun's).
 
 :func:`run_against` times these windows against a client the caller
-built: the reference ``tpudfs.client.Client`` on a live cluster
-(``remote=True``, as ``tests/test_torch_cuda.py`` runs it on the card
-against a master and three chunkservers in their own processes), or a
+built: a cluster client on a live cluster (``remote=True``: :func:`run_remote`,
+what ``main`` runs by default), or a
 :class:`~tpudfs_torch.client.local.LocalClient` over stores laid out on
-local disk (``remote=False``: :func:`run_local`, what ``main`` runs).
+local disk (``remote=False``: :func:`run_local`, ``--local``).
 :func:`run_ckpt` times sharded checkpoint saves and restores on a live
-cluster of five chunkservers, two of which the caller kills.
+cluster of five chunkservers, two of which the caller kills
+(:func:`run_remote_ckpt`, ``--ckpt``).
 
 vs_baseline: ``value`` over 90% of this host's raw host->device rate,
 the best of three honest harnesses (:func:`raw_infeed`).
@@ -172,8 +180,8 @@ def _start_watchdog() -> None:
     threading.Thread(target=watch, daemon=True).start()
 
 
-def _winmm(xs: list, nd: int = 3) -> list:
-    return [round(min(xs), nd), round(max(xs), nd)]
+def _winmm(xs: list) -> list:
+    return [min(xs), max(xs)]
 
 
 def _pct(xs: list, q: float) -> float:
@@ -437,10 +445,10 @@ async def _write_windows(client, rpc_call, data: bytes) -> dict:
         write.append(FILES * len(data) / (time.perf_counter() - t0) / 1e9)
         _tick(f"write-rep{rep}")
     _partial.update({
-        "write_pipeline_GBps": round(statistics.median(write), 3),
+        "write_pipeline_GBps": statistics.median(write),
         "write_pipeline_win": _winmm(write),
-        "meta_creates_per_s": round(statistics.median(meta), 1),
-        "meta_fused_creates_per_s": round(statistics.median(fused), 1),
+        "meta_creates_per_s": statistics.median(meta),
+        "meta_fused_creates_per_s": statistics.median(fused),
         "files": FILES,
         "etag_mode": client.etag_mode,
     })
@@ -501,8 +509,8 @@ async def run_against(client, device=None, *, rpc_call=None,
     (default ``cuda:0``); returns the result dict (see the module
     docstring).
 
-    ``remote=True``: ``client`` is a cluster client (the reference
-    ``Client``) and ``rpc_call`` an ``RpcClient.call``; the run writes the
+    ``remote=True``: ``client`` is a cluster client (the port's or the
+    reference's ``Client``) and ``rpc_call`` an ``RpcClient.call``; the run writes the
     ``REPS`` file sets ``/bench/r<rep>/f<i>`` itself. ``remote=False``: the
     sets already exist behind ``client`` (a ``LocalClient``,
     :func:`lay_out_sets`), and the windows that need servers (writes,
@@ -614,10 +622,10 @@ async def run_against(client, device=None, *, rpc_call=None,
         retain(blocks)
         _tick(f"warm-rep{rep_i}")
         _partial.update({
-            "raw_infeed_GBps": round(statistics.median(raw), 3),
-            "value": round(statistics.median(cold), 3),
-            "warm_infeed_read_GBps": round(statistics.median(warm), 3),
-            **({"grpc_read_GBps": round(statistics.median(grpc), 3)}
+            "raw_infeed_GBps": statistics.median(raw),
+            "value": statistics.median(cold),
+            "warm_infeed_read_GBps": statistics.median(warm),
+            **({"grpc_read_GBps": statistics.median(grpc)}
                if remote else {}),
         })
 
@@ -657,54 +665,54 @@ async def run_against(client, device=None, *, rpc_call=None,
             "1MiB-chunk read GB/s/host into GPU memory (3x-replicated DFS, "
             "CRC32C verify) + 3x-replication write step GB/s on the card"
         ),
-        "value": round(achieved, 3),
+        "value": achieved,
         "unit": "GB/s",
-        "vs_baseline": round(achieved / target, 3) if target else 0.0,
+        "vs_baseline": achieved / target if target else 0.0,
         "windows": READ_REPS,
         "write_windows": REPS,
         "value_win": _winmm(cold),
     }
     if remote:
-        out.update({"grpc_read_GBps": round(med(grpc), 3),
+        out.update({"grpc_read_GBps": med(grpc),
                     "grpc_read_win": _winmm(grpc)})
     out.update({
-        "warm_infeed_read_GBps": round(med(warm), 3),
+        "warm_infeed_read_GBps": med(warm),
         "warm_infeed_win": _winmm(warm),
         "local_read_blocks": local_blocks,
-        "confirm_s": round(confirm_s, 3),
+        "confirm_s": confirm_s,
     })
     if remote:
         out.update({
-            "write_pipeline_GBps": round(med(writes["write"]), 3),
+            "write_pipeline_GBps": med(writes["write"]),
             "write_pipeline_win": _winmm(writes["write"]),
-            "meta_creates_per_s": round(med(writes["meta"]), 1),
-            "meta_creates_win": _winmm(writes["meta"], 1),
-            "meta_fused_creates_per_s": round(med(writes["meta_fused"]), 1),
-            "meta_fused_creates_win": _winmm(writes["meta_fused"], 1),
+            "meta_creates_per_s": med(writes["meta"]),
+            "meta_creates_win": _winmm(writes["meta"]),
+            "meta_fused_creates_per_s": med(writes["meta_fused"]),
+            "meta_fused_creates_win": _winmm(writes["meta_fused"]),
         })
     out.update({
-        "ici_write_GBps": round(med(ici), 3),
+        "ici_write_GBps": med(ici),
         "ici_write_win": _winmm(ici),
-        "ici_ec_scatter_GBps": round(med(ec), 3),
+        "ici_ec_scatter_GBps": med(ec),
         "ici_ec_scatter_win": _winmm(ec),
-        "raw_infeed_GBps": round(med(raw), 3),
+        "raw_infeed_GBps": med(raw),
         "raw_infeed_win": _winmm(raw),
-        "raw_infeed_pageable_GBps": round(med(raw_pageable), 3),
-        "raw_infeed_pinned_GBps": (round(med(pinned_ok), 3)
+        "raw_infeed_pageable_GBps": med(raw_pageable),
+        "raw_infeed_pinned_GBps": (med(pinned_ok)
                                    if pinned_ok else None),
-        "raw_infeed_after_GBps": round(raw_after, 3),
+        "raw_infeed_after_GBps": raw_after,
         "files": FILES,
         "block_bytes": len(data),
     })
     if remote:
         hits, misses = cache["hits"], cache["misses"]
         out.update({
-            "cache_read_GBps": round(med(cache["samples"]), 3),
+            "cache_read_GBps": med(cache["samples"]),
             "cache_read_win": _winmm(cache["samples"]),
-            "cache_read_p50_ms": round(_pct(cache["lat"], 0.50) * 1e3, 2),
-            "cache_read_p99_ms": round(_pct(cache["lat"], 0.99) * 1e3, 2),
+            "cache_read_p50_ms": _pct(cache["lat"], 0.50) * 1e3,
+            "cache_read_p99_ms": _pct(cache["lat"], 0.99) * 1e3,
             "cache_read_ops": len(cache["lat"]),
-            "cs_cache_hit_rate": round(hits / max(1, hits + misses), 3),
+            "cs_cache_hit_rate": hits / max(1, hits + misses),
             "etag_mode": client.etag_mode,
         })
     out.update({
@@ -757,10 +765,71 @@ def run_local(device, workdir: Path) -> tuple[LocalClient, dict]:
     return client, {**result, "layout_s": layout_s}
 
 
+def run_remote(device, workdir: Path) -> dict:
+    """The bench's windows against a cluster of 1 master and 3 chunkservers
+    spawned under ``workdir`` (``BLOCK_CACHE_SIZE`` of ``CS_CACHE_BLOCKS``),
+    through the port's ``Client`` at ``BLOCK_BYTES`` blocks with CRC-64
+    ETags and ``rpc_call`` bound to its own ``RpcClient``. The result's
+    ``cluster_start_s`` is the cluster's start."""
+    from tpudfs_torch.client.client import Client
+    from tpudfs_torch.cluster import ProcessCluster
+
+    device = resolve_device(device)
+    _tick("cluster-spawn")
+    with ProcessCluster(workdir, n_cs=3,
+                        cache_blocks=CS_CACHE_BLOCKS) as cluster:
+        async def run() -> dict:
+            client = Client([cluster.master_addr], block_size=BLOCK_BYTES,
+                            etag_mode="crc64")
+            try:
+                return await run_against(client, device,
+                                         rpc_call=client.rpc.call)
+            finally:
+                await client.close()
+
+        result = asyncio.run(run())
+    return {**result, "cluster_start_s": cluster.start_s}
+
+
+def run_remote_ckpt(device, workdir: Path) -> dict:
+    """:func:`run_ckpt` on a cluster of 1 master and 5 chunkservers spawned
+    under ``workdir``, through the port's ``Client`` (1 MiB blocks, CRC-64
+    ETags); the two victims are the last two chunkservers, SIGKILLed, as
+    the JAX bench's ``_run_ckpt`` kills them."""
+    from tpudfs_torch.client.client import Client
+    from tpudfs_torch.cluster import ProcessCluster
+
+    device = resolve_device(device)
+    _tick("cluster-spawn")
+    with ProcessCluster(workdir, n_cs=5,
+                        cache_blocks=CS_CACHE_BLOCKS) as cluster:
+        def kill_two() -> None:
+            for cs in cluster.chunkservers[-2:]:
+                cs.kill()
+
+        async def run() -> dict:
+            client = Client([cluster.master_addr], block_size=BLOCK_BYTES,
+                            etag_mode="crc64")
+            try:
+                return await run_ckpt(client, kill_two, device)
+            finally:
+                await client.close()
+
+        result = asyncio.run(run())
+    return {**result, "cluster_start_s": cluster.start_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--local", action="store_true",
+                      help="read windows only, over stores on local disk")
+    mode.add_argument("--ckpt", action="store_true",
+                      help="the checkpoint bench on 1 master + 5 "
+                           "chunkservers")
     ap.add_argument("--workdir", default=str(REPO / "build"),
-                    help="where the file sets are laid out (removed after)")
+                    help="where the cluster or the file sets live "
+                         "(removed after)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tpudfs_torch.bench: no CUDA device; the bench runs on the "
@@ -768,11 +837,17 @@ def main(argv=None) -> int:
         return 1
     root = Path(args.workdir)
     root.mkdir(parents=True, exist_ok=True)
-    _tick("layout")
+    device = torch.device("cuda", 0)
+    _tick("layout" if args.local else "cluster-spawn")
     _start_watchdog()
     with tempfile.TemporaryDirectory(prefix="tpudfs-bench-",
                                      dir=root) as tmp:
-        _, result = run_local(torch.device("cuda", 0), Path(tmp))
+        if args.local:
+            _, result = run_local(device, Path(tmp))
+        elif args.ckpt:
+            result = run_remote_ckpt(device, Path(tmp))
+        else:
+            result = run_remote(device, Path(tmp))
     _progress["t"] = None  # disarm the watchdog before the final line
     _emit_once(result)
     return 0
@@ -863,17 +938,17 @@ async def run_ckpt(client, kill_two, device=None) -> dict:
             "+ RS(3,2) cold copy, atomic manifest commit; degraded = "
             "EC-only restore with 2/5 chunkservers killed)"
         ),
-        "value": round(save, 3),
+        "value": save,
         "unit": "GB/s",
-        "vs_baseline": round(save / plain, 3) if plain else 0.0,
+        "vs_baseline": save / plain if plain else 0.0,
         "windows": REPS,
-        "ckpt_save_GBps": round(save, 3),
+        "ckpt_save_GBps": save,
         "ckpt_save_win": _winmm(save_samples),
-        "ckpt_restore_GBps": round(med(restore_samples), 3),
+        "ckpt_restore_GBps": med(restore_samples),
         "ckpt_restore_win": _winmm(restore_samples),
-        "ckpt_restore_degraded_GBps": round(med(degraded_samples), 3),
+        "ckpt_restore_degraded_GBps": med(degraded_samples),
         "ckpt_restore_degraded_win": _winmm(degraded_samples),
-        "plain_write_GBps": round(plain, 3),
+        "plain_write_GBps": plain,
         "ckpt_shards": CKPT_SHARDS,
         "ckpt_steps": CKPT_STEPS,
         "ckpt_logical_bytes_per_step": logical,

@@ -1,9 +1,9 @@
 """The port's own binding of the native host engine
-(``native/blockio.cc`` + ``native/crc32c.cc`` + ``native/gf256.cc``), the
-C++ path the reference's ``checksum``, ``erasure`` and ``blockstore``
-dispatch to.
+(``native/blockio.cc`` + ``native/crc32c.cc`` + ``native/gf256.cc`` +
+``native/crc64.cc``), the C++ path the reference's ``checksum``,
+``erasure`` and ``blockstore`` dispatch to.
 
-At first use the three sources are compiled with ``g++`` (the flags of
+At first use the four sources are compiled with ``g++`` (the flags of
 ``native/Makefile``) into one shared library under ``build/tpudfs_torch/``
 at the root of the checkout, named by a hash of the sources, so an edited
 source is rebuilt and a stale library is never loaded. Several processes
@@ -23,19 +23,22 @@ Bound entries (each with explicit ``argtypes`` and ``restype``):
   (:func:`crc32c_chunks`): SSE4.2 CRC32C of a buffer, whole or per chunk;
 - ``tpudfs_gf256_matmul`` (:func:`gf256_matmul`): a GF(2^8) matrix applied
   to shard rows, RS encode and decode;
+- ``tpudfs_crc64nvme`` (:func:`crc64nvme`): slice-by-8 CRC-64/NVME, the
+  client's ``etag_mode="crc64"`` ETag;
 - ``tpudfs_block_write`` (:func:`block_write`): chunk CRCs, temp file,
   fsync and rename of a block and its sidecar in one call;
 - ``tpudfs_block_read_verify`` (:func:`block_read_verify`): pread of a
   range and the CRC check of every chunk it touches in one call.
 
-Each of the five wrappers counts its calls in its ``calls`` attribute, as
+Each of the six wrappers counts its calls in its ``calls`` attribute, as
 the kernel wrappers count launches (:func:`call_counts`, :func:`reset_calls`).
 ctypes releases the interpreter lock for the length of each native call.
 
 :func:`blocks_read_plain` is the plain Python twin of the batched read,
 with the same results; ``common.checksum.crc32c_plain`` and
-``crc32c_chunks_plain`` and ``common.erasure._gf_matmul_plain`` (numpy) are
-the plain twins of the CRC and GF(2^8) entries.
+``crc32c_chunks_plain``, ``crc64nvme_plain`` and
+``common.erasure._gf_matmul_plain`` (numpy) are the plain twins of the CRC
+and GF(2^8) entries.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, as_u8, crc32c_plai
 
 REPO = Path(__file__).resolve().parents[2]
 SOURCES = [REPO / "native" / name
-           for name in ("blockio.cc", "crc32c.cc", "gf256.cc")]
+           for name in ("blockio.cc", "crc32c.cc", "gf256.cc", "crc64.cc")]
 BUILD_DIR = REPO / "build" / "tpudfs_torch"
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-Wextra"]
 
@@ -75,6 +78,7 @@ _SIGNATURES = {
     "tpudfs_crc32c": (ctypes.c_uint32, [ctypes.c_uint32, _P, _SIZE]),
     "tpudfs_crc32c_chunks": (None, [_P, _SIZE, _SIZE, _P]),
     "tpudfs_gf256_matmul": (None, [_P, _SIZE, _SIZE, _P, _SIZE, _P]),
+    "tpudfs_crc64nvme": (_U64, [_U64, _P, _SIZE]),
     "tpudfs_block_write": (_I64, [_STR, _STR, _P, _U64, ctypes.c_uint32, _P]),
     "tpudfs_block_read_verify": (_I64, [_STR, _STR, _U64, _U64, _P,
                                         ctypes.c_int, ctypes.c_uint32]),
@@ -176,6 +180,15 @@ def crc32c_chunks(data, chunk: int = CHECKSUM_CHUNK_SIZE) -> np.ndarray:
     return out
 
 
+def crc64nvme(data, crc: int = 0) -> int:
+    """CRC-64/NVME of a bytes-like object, a numpy array or a CPU tensor,
+    continuing from ``crc``."""
+    buf, handle = as_u8(data), lib()
+    crc64nvme.calls += 1
+    return int(handle.tpudfs_crc64nvme(crc & 0xFFFFFFFFFFFFFFFF,
+                                       buf.ctypes.data, len(buf)))
+
+
 def gf256_matmul(mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
     """``out[r] = xor_c mat[r, c] * shards[c]`` over GF(2^8): a (rows,
     cols) uint8 matrix applied to (cols, n) uint8 shard rows."""
@@ -227,7 +240,8 @@ def block_read_verify(data_path: str, meta_path: str, offset: int,
 
 
 #: The wrappers that count their calls.
-ENGINE = (crc32c, crc32c_chunks, gf256_matmul, block_write, block_read_verify)
+ENGINE = (crc32c, crc32c_chunks, crc64nvme, gf256_matmul, block_write,
+          block_read_verify)
 
 
 def call_counts() -> dict[str, int]:

@@ -41,8 +41,10 @@ Deliberate differences from the reference:
   name (``client/local.py::is_error_named``).
 - Deadline and tenant scopes come from ``scopes=``: any object with
   ``deadline_scope``, ``tenant_scope``, ``shielded_from_deadline`` and
-  ``as_system_tenant`` (the reference's ``tpudfs.common.resilience`` module
-  is one). The default, :class:`NoScopes`, installs none.
+  ``as_system_tenant``. The default is the port's
+  ``tpudfs_torch.common.resilience``, whose contextvars the port's own
+  ``Client`` reads; a foreign client needs its own package's scopes (the
+  reference's ``tpudfs.common.resilience`` for the reference's client).
 - ``restore(..., device=...)`` without a ``reader`` raises ``ValueError``
   (the reference quietly returns host arrays); ``device=None`` returns
   host numpy arrays, as the reference does.
@@ -71,7 +73,7 @@ from tpudfs_torch.client.local import (
     is_dfs_error,
     is_error_named,
 )
-from tpudfs_torch.common import ckptpaths
+from tpudfs_torch.common import ckptpaths, resilience
 from tpudfs_torch.common.checksum import crc32c, crc32c_combine
 from tpudfs_torch.gpu import resolve_device
 from tpudfs_torch.gpu.hbm_reader import device_array_to_bytes
@@ -254,26 +256,6 @@ def _validate_manifest(body: bytes) -> dict:
     return manifest
 
 
-class NoScopes:
-    """The default ``scopes=``: no deadline, tenant or shield context."""
-
-    @staticmethod
-    def deadline_scope(budget):
-        return contextlib.nullcontext()
-
-    @staticmethod
-    def tenant_scope(tenant):
-        return contextlib.nullcontext()
-
-    @staticmethod
-    def shielded_from_deadline():
-        return contextlib.nullcontext()
-
-    @staticmethod
-    def as_system_tenant():
-        return contextlib.nullcontext()
-
-
 # ------------------------------------------------------------ device restore
 
 
@@ -419,7 +401,7 @@ class CheckpointManager:
                  ec: tuple[int, int] | None = (3, 2), hot_copies: bool = True,
                  reader=None, save_budget_s: float | None = None,
                  restore_budget_s: float | None = None,
-                 tenant: str | None = None, scopes=NoScopes):
+                 tenant: str | None = None, scopes=resilience):
         if num_shards < 1:
             raise ValueError("num_shards must be >= 1")
         if not hot_copies and not ec:
