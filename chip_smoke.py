@@ -15,7 +15,8 @@ line per phase (``device``, ``build``, ``kernels_vs_plain``,
 ``host_engine``, ``read_path``,
 ``ec_rebuild``, ``combined``, ``sweep``, ``infeed``, ``write``,
 ``ec_collective``, ``entry``, ``dryrun``, ``restore``, ``cluster``,
-``dataset``, ``bench``, ``kernel_times``, ``kernels``), the kernel table
+``sharded``, ``dataset``, ``bench``, ``kernel_times``, ``kernels``), the
+kernel table
 ``{"kernels": [...]}`` (each row at the read path's shape, with the write
 side's shapes nested in it), and last
 ``{"ok": true, "device": {...}}``. Any mismatch raises: the run exits
@@ -126,6 +127,28 @@ Then the live cluster:
   bit-exact over the wire, every block that lost a data shard rebuilt
   with at least one ``gf256_matmul`` launch. The process then holds no
   module of the JAX package or of JAX.
+- ``sharded``: the system's own deployment,
+  ``deploy/topologies/two-shard-ha.json`` (1 config server, shards
+  ``shard-0`` and ``shard-z`` of 3 masters each, 5 chunkservers in 3
+  racks) with TLS on every transport (``tpudfs_torch.cluster.
+  TopologyCluster``, the chunkservers' block cache off, every blockport
+  the native engine), driven through the port's client as the
+  reference's fault tiers build theirs (every master, the config server,
+  ``ClientTls``, no local short circuit, 64 MiB blocks): the ``dataset``
+  phase's 1 GiB token file written at 3x to ``/a/staging/`` and renamed
+  across the shards to ``/z/train/tokens.bin``; the ``restore`` phase's
+  rank shard saved by the port's ``CheckpointManager`` at ``/a/ckpt`` (3x
+  hot copy, RS(3,2) cold copy), step 1 healthy and step 2 published
+  through a SIGKILL of its shard's leader mid-save (``failover_s``: the
+  kill to the first metadata read the new leader answers); ``/`` listed
+  across the shards against each shard's own listing; step 2 restored
+  into ``cuda:0`` bit-exact; the token file read through the infeed (100
+  batches, two spawned workers with clients of their own) with the
+  owning shard's leader SIGKILLed after the first batch, every batch
+  checked; the two chunkservers holding the most data shards of the cold
+  copy SIGKILLed, the hot copy deleted, and step 2 restored again from
+  the cold copy, every block that lost a data shard rebuilt by one
+  ``gf256_matmul`` launch.
 
 Then the bench:
 
@@ -162,14 +185,23 @@ import numpy as np
 import torch
 
 from tpudfs_torch import bench, read_profile, sweep_lab
-from tpudfs_torch.ckpt_chaos import data_shard_holders
+from tpudfs_torch.ckpt_chaos import (
+    PutLog,
+    data_shard_holders,
+    is_fault,
+    retry_until,
+)
 from tpudfs_torch.client.local import DfsError, LocalClient, is_error_named
 from tpudfs_torch.chunkserver.blockstore import BlockStore
 from tpudfs_torch.common import ckptpaths, layout, native
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c, crc32c_fold
 from tpudfs_torch.common.erasure import encode
 from tpudfs_torch.gpu import host_to_device, u32_to_i64, u32_to_numpy
-from tpudfs_torch.gpu.checkpoint import pack_shard, restore_shard_device
+from tpudfs_torch.gpu.checkpoint import (
+    CheckpointManager,
+    pack_shard,
+    restore_shard_device,
+)
 from tpudfs_torch.gpu.crc32c_cuda import (
     block_crc_device,
     bytes_to_words,
@@ -260,7 +292,9 @@ KERNELS = {
 #: and launches nothing; the bench's probes read through the combiner's
 #: fused rounds (and the per-block path's fused CRC), its write step
 #: verifies with the chunk CRCs and its scatter encodes with the GF(2^8)
-#: kernel.
+#: kernel; the sharded deployment's restores verify as the restore's do
+#: and rebuild every cold-copy block that lost a data shard (its infeed,
+#: like the dataset phase's, verifies records on the host).
 PATH_KERNELS = {
     "read_path": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
     "combined": ("crc32c_blocks",),
@@ -274,6 +308,7 @@ PATH_KERNELS = {
     "dataset": (),
     "bench": ("crc32c_chunks", "crc32c_blocks", "gf256_matmul"),
     "cluster": ("crc32c_blocks", "gf256_matmul"),
+    "sharded": ("crc32c_blocks", "crc32c_chunks", "gf256_matmul"),
 }
 #: The native host engine's entries each phase must call: ``host_engine``
 #: its CRC and GF(2^8) entries; the read path lays out its stores with the
@@ -291,6 +326,7 @@ PATH_ENGINE = {
     "restore": ("crc32c", "gf256_matmul", "block_write"),
     "bench": ("crc32c_chunks", "block_read_verify"),
     "cluster": ("crc32c", "crc64nvme", "gf256_matmul"),
+    "sharded": ("crc32c", "crc64nvme", "gf256_matmul"),
 }
 #: The write phase: 3x replication (BASELINE.json's HA layout) on a
 #: 3-position ring, 4 blocks a position a round.
@@ -1486,17 +1522,70 @@ GPT2_BATCH = 12
 GPT2_VOCAB = 50257
 
 
+def _read_records(source, tokens: np.ndarray, device, *, batches: int,
+                  seed: int, num_workers: int, what: str,
+                  after_first=None) -> dict:
+    """``source`` (2,048-byte records of ``tokens``) through
+    ``make_dataset(batch_size=12, shuffle_seed=seed)`` (``num_workers``
+    spawned loader workers) and ``device_iterator`` onto ``device`` for
+    ``batches`` batches, ``after_first()`` called once the first batch has
+    landed; then every landed batch checked against the source records of
+    the sampler's order, and ``source`` closed. The rates count the
+    batches after the first (which pays the workers' start)."""
+    record = source.record_bytes
+    try:
+        loader = make_dataset(source, batch_size=GPT2_BATCH,
+                              shuffle_seed=seed, device=device,
+                              num_workers=num_workers)
+        landed, first_s = [], None
+        it = device_iterator(loader, device)
+        sync(device)
+        t0 = time.perf_counter()
+        try:
+            for batch in it:
+                landed.append(batch)
+                if first_s is None:
+                    sync(device)
+                    first_s = time.perf_counter() - t0
+                    if after_first is not None:
+                        after_first()
+                if len(landed) == batches:
+                    break
+        finally:
+            it.close()
+        sync(device)
+        seconds = time.perf_counter() - t0
+        nrecords = len(source)
+    finally:
+        source.close()
+    if len(landed) != batches:
+        raise AssertionError(f"{what}: {len(landed)} of {batches} batches")
+    order = EpochSampler(nrecords, seed=seed)
+    want_idx = np.fromiter(order, dtype=np.int64,
+                           count=nrecords)[: batches * GPT2_BATCH]
+    records = tokens.reshape(-1, GPT2_BLOCK_TOKENS)
+    for i, batch in enumerate(landed):
+        want = records[want_idx[i * GPT2_BATCH : (i + 1) * GPT2_BATCH]]
+        if batch.device != device or batch.dtype != torch.uint16 or \
+                not np.array_equal(batch.cpu().numpy(), want):
+            raise AssertionError(f"{what}: batch {i} differs")
+    steady = seconds - first_s
+    steady_records = (batches - 1) * GPT2_BATCH
+    return {"record_bytes": record, "records": nrecords,
+            "batch_size": GPT2_BATCH, "batches": batches,
+            "num_workers": num_workers, "first_batch_s": first_s,
+            "seconds": seconds, "records_per_s": steady_records / steady,
+            "gbps": steady_records * record / steady / 1e9, "exact": True}
+
+
 def dataset_path(device: torch.device, *, file_bytes: int = 1 << 30,
                  block_size: int = 64 * MiB, batches: int = 300,
                  seed: int = 0, num_workers: int = 2,
                  workdir: Path | None = None) -> dict:
     """The ``dataset`` phase: a 3x-replicated file of uint16 GPT-2 tokens
     read as 2,048-byte records through ``DfsRecordSource`` on a
-    ``LocalClient``, ``make_dataset(batch_size=12, shuffle_seed=seed)``
-    (``num_workers`` spawned loader workers) and ``device_iterator`` onto
-    ``device``, for ``batches`` batches; then every landed batch checked
-    against the source records of the sampler's order. The rates count the
-    batches after the first (which pays the workers' start)."""
+    ``LocalClient`` into ``device`` for ``batches`` batches, each checked
+    (:func:`_read_records`)."""
     root = Path(workdir) if workdir is not None else REPO / "build"
     root.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dataset_", dir=root))
@@ -1510,57 +1599,19 @@ def dataset_path(device: torch.device, *, file_bytes: int = 1 << 30,
                                                tokens.view(np.uint8),
                                                block_size)}
         setup_s = time.perf_counter() - t0
-        record = GPT2_BLOCK_TOKENS * tokens.itemsize
         source = DfsRecordSource(functools.partial(LocalClient, stores, metas),
-                                 [path], record, dtype="uint16")
-        try:
-            loader = make_dataset(
-                source, batch_size=GPT2_BATCH, shuffle_seed=seed,
-                device=device, num_workers=num_workers)
-            landed, first_s = [], None
-            it = device_iterator(loader, device)
-            sync(device)
-            t0 = time.perf_counter()
-            try:
-                for batch in it:
-                    landed.append(batch)
-                    if first_s is None:
-                        sync(device)
-                        first_s = time.perf_counter() - t0
-                    if len(landed) == batches:
-                        break
-            finally:
-                it.close()
-            sync(device)
-            seconds = time.perf_counter() - t0
-            nrecords = len(source)
-        finally:
-            source.close()
+                                 [path], GPT2_BLOCK_TOKENS * tokens.itemsize,
+                                 dtype="uint16")
+        read = _read_records(source, tokens, device, batches=batches,
+                             seed=seed, num_workers=num_workers,
+                             what="dataset")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    if len(landed) != batches:
-        raise AssertionError(f"dataset: {len(landed)} of {batches} batches")
-    order = EpochSampler(nrecords, seed=seed)
-    want_idx = np.fromiter(order, dtype=np.int64,
-                           count=nrecords)[: batches * GPT2_BATCH]
-    records = tokens.reshape(-1, GPT2_BLOCK_TOKENS)
-    for i, batch in enumerate(landed):
-        want = records[want_idx[i * GPT2_BATCH : (i + 1) * GPT2_BATCH]]
-        if batch.device != device or batch.dtype != torch.uint16 or \
-                not np.array_equal(batch.cpu().numpy(), want):
-            raise AssertionError(f"dataset: batch {i} differs")
-    steady = seconds - first_s
-    steady_records = (batches - 1) * GPT2_BATCH
     return {"phase": "dataset", "device": str(device), "seed": seed,
             "source": "nanoGPT config/train_gpt2.py: block_size 1024, "
                       "batch_size 12, uint16 tokens",
             "file_bytes": file_bytes, "block_size": block_size,
-            "record_bytes": record, "records": nrecords,
-            "batch_size": GPT2_BATCH, "batches": batches,
-            "num_workers": num_workers, "setup_s": setup_s,
-            "first_batch_s": first_s, "seconds": seconds,
-            "records_per_s": steady_records / steady,
-            "gbps": steady_records * record / steady / 1e9, "exact": True}
+            "setup_s": setup_s, **read}
 
 
 # ---------------------------------------------------------- phase: cluster
@@ -1865,6 +1916,410 @@ def cluster_phase(device: torch.device, *, block_size: int = 64 * MiB,
             "cut": None if nblocks == CLUSTER_BLOCKS else
             f"big file cut to {nblocks} of {CLUSTER_BLOCKS} blocks by the "
             f"caller",
+            "foreign_modules": foreign}
+
+
+# ---------------------------------------------------------- phase: sharded
+
+#: The system's own deployment (``deploy/topologies/two-shard-ha.json``,
+#: the reference's fault tiers' topology and the Helm chart's layout): 1
+#: config server, 2 shards of 3-master Raft groups, 5 chunkservers in 3
+#: racks, TLS on every transport.
+SHARDED_TOPOLOGY = REPO / "deploy" / "topologies" / "two-shard-ha.json"
+#: The checkpoint's base and the dataset's paths: the staging copy and its
+#: home lie on either side of the bootstrap split at ``/m``, so the rename
+#: is a cross-shard two-phase commit.
+SHARDED_CKPT = "/a/ckpt"
+SHARDED_STAGING = "/a/staging/tokens.bin"
+SHARDED_TOKENS = "/z/train/tokens.bin"
+#: Batches the sharded phase's dataset read lands (the ``dataset`` phase
+#: lands 300).
+SHARDED_BATCHES = 100
+#: The phase's budget on the card (seconds).
+SHARDED_BUDGET_S = 150.0
+#: Seconds a save of step 2 may take to publish once its shard's leader
+#: is killed, resumes included.
+SHARDED_RESUME_S = 120.0
+
+
+async def _first_answer(client, addrs, path: str, t_kill: float) -> dict:
+    """Poll ``addrs`` (a shard's surviving masters) with ``GetFileInfo`` of
+    ``path`` (a linearizable read: only a leader answers it) until one
+    answers; the seconds from ``t_kill`` and the address that answered."""
+    while True:
+        for addr in addrs:
+            try:
+                await client.rpc.call(addr, "MasterService", "GetFileInfo",
+                                      {"path": path}, timeout=1.0)
+            except Exception:
+                continue
+            return {"failover_s": time.perf_counter() - t_kill,
+                    "new_leader": addr}
+        await asyncio.sleep(0.02)
+
+
+async def _until_done(what: str, op, attempt=None) -> str:
+    """Await ``attempt`` (a running first try) or ``op()``; when the cluster
+    fails it, retry ``op()`` once a second for ``SHARDED_RESUME_S``, as a
+    training job resumes a save (every such operation here is
+    idempotent). Returns how it ended: ``first try`` or ``resumed after``
+    the first failure."""
+    try:
+        await (attempt if attempt is not None else op())
+        return "first try"
+    except Exception as e:
+        if not is_fault(e):
+            raise
+        outcome = f"resumed after {type(e).__name__}: {str(e)[:160]}"
+    await retry_until(f"sharded: {what}", op, SHARDED_RESUME_S)
+    return outcome
+
+
+async def _save_through_failover(mgr, log, cluster, client, shard: str,
+                                 tree: dict) -> dict:
+    """Save step 2 and SIGKILL ``shard``'s leader once the step's first
+    blob (its hot copy) has started: the save either publishes through the
+    new leader or fails and is resumed until it publishes. Returns the
+    kill, the failover time, the save's seconds and how it published."""
+    first = ckptpaths.shard_data_path(mgr.base, 2, 0)
+    t0 = time.perf_counter()
+    save = asyncio.ensure_future(mgr.save(2, {0: tree}))
+    started = asyncio.ensure_future(log.started(first).wait())
+    await asyncio.wait([save, started], return_when=asyncio.FIRST_COMPLETED)
+    if save.done():
+        save.result()
+        raise AssertionError("sharded: step 2 saved before its first blob "
+                             "was seen")
+    killed = await cluster.kill_master(shard, leader=True, client=client)
+    t_kill = time.perf_counter()
+    if killed is None:
+        raise AssertionError(f"sharded: {shard} had no leader to kill")
+    survivors = [a for a in cluster.shards[shard] if a != killed[1]]
+    failover = await _first_answer(client, survivors,
+                                   ckptpaths.manifest_path(mgr.base, 1),
+                                   t_kill)
+    outcome = await _until_done("step 2's save",
+                                lambda: mgr.save(2, {0: tree}), save)
+    return {"killed": {"name": killed[0], "addr": killed[1],
+                       "leader": True, "shard": shard,
+                       "during": f"step 2's put of {first}"},
+            **failover, "seconds": time.perf_counter() - t0,
+            "published": outcome}
+
+
+async def _raft_terms(cluster, client) -> dict:
+    """Each shard's live masters' Raft term and role: a term above 1
+    counts the elections the run caused."""
+    out = {}
+    for m in cluster.masters.values():
+        if m.proc.poll() is None:
+            state = await client.raft_state(m.addr)
+            out[m.name] = [state["term"], state["role"]]
+    return out
+
+
+async def _shard_listings(cluster, client, prefix: str) -> dict:
+    """Each shard's own ``ListFiles`` of ``prefix`` (a client given only
+    that shard's masters and no config server)."""
+    from tpudfs_torch.client.client import Client
+
+    out = {}
+    for sid, addrs in cluster.shards.items():
+        alone = Client(addrs, tls=cluster.client_tls, local_reads=False)
+        try:
+            out[sid] = await alone.list_files(prefix)
+        finally:
+            await alone.close()
+    return out
+
+
+def _sharded_infeed(cluster, client_factory, tokens: np.ndarray, shard: str,
+                    device, *, batches: int, seed: int,
+                    num_workers: int) -> dict:
+    """The ``dataset`` phase's read of ``SHARDED_TOKENS`` over the cluster
+    (:func:`_read_records`), ``shard``'s leader SIGKILLed after the first
+    batch."""
+    source = DfsRecordSource(client_factory, [SHARDED_TOKENS],
+                             GPT2_BLOCK_TOKENS * tokens.itemsize,
+                             dtype="uint16")
+    killed = []
+    read = _read_records(
+        source, tokens, device, batches=batches, seed=seed,
+        num_workers=num_workers, what="sharded: dataset",
+        after_first=lambda: killed.append(
+            asyncio.run(cluster.kill_master(shard))))
+    if killed[0] is None:
+        raise AssertionError(f"sharded: {shard} had no leader to kill")
+    return {**read, "killed": {"name": killed[0][0], "addr": killed[0][1],
+                               "leader": True, "shard": shard,
+                               "during": "after the first batch"}}
+
+
+async def _sharded_degraded(mgr, client, cluster, reader, spec: dict,
+                            tree: dict, device) -> dict:
+    """SIGKILL the two chunkservers that hold the most data shards of step
+    2's cold copy, delete its hot copy, and restore step 2 again into
+    ``device``: from the RS(3,2) copy, bit-exact, every block that lost a
+    data shard rebuilt, once each by the GF(2^8) kernel on a card."""
+    meta = await client.get_file_info(spec["ec_path"])
+    held = data_shard_holders([meta])
+    victims = sorted(held, key=lambda a: (-held[a], a))[:2]
+    lost = sum(1 for b in meta["blocks"]
+               if set(b["locations"][: int(b["ec_data_shards"])])
+               & set(victims))
+    killed = []
+    for cs in cluster.chunkservers:
+        if cs.addr in victims:
+            cs.kill()
+            killed.append({"name": cs.name, "addr": cs.addr,
+                           "leader": False, "role": "chunkserver"})
+    await client.delete_file(spec["path"])
+    rebuilds, launches = reader.ec_rebuilds, gf_matmul_words.launches
+    degraded0 = mgr.stats["degraded_shard_reads"]
+    sync(device)
+    t0 = time.perf_counter()
+    out = (await mgr.restore(2, device=device))[0]
+    sync(device)
+    seconds = time.perf_counter() - t0
+    _check_restored(out, tree, device)
+    rebuilt = reader.ec_rebuilds - rebuilds
+    launches = gf_matmul_words.launches - launches
+    if mgr.stats["degraded_shard_reads"] - degraded0 != 1:
+        raise AssertionError("sharded: the degraded restore did not read "
+                             "the cold copy")
+    if not lost or rebuilt != lost or \
+            launches != lost * (device.type == "cuda"):
+        raise AssertionError(
+            f"sharded: {lost} blocks lost a data shard; {rebuilt} rebuilt, "
+            f"{launches} GF(2^8) launches")
+    first = meta["blocks"][0]
+    present = [i for i, a in enumerate(first["locations"])
+               if a not in victims][: int(first["ec_data_shards"])]
+    return {"victims": victims, "killed": killed,
+            "data_shards_held": dict(held), "blocks": len(meta["blocks"]),
+            "blocks_lost_data": lost, "rebuilt_blocks": rebuilt,
+            "gf256_launches": launches, "first_block_present": present,
+            "seconds": seconds, "gbps": spec["size"] / seconds / 1e9}
+
+
+def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
+                  file_bytes: int = 1 << 30, block_size: int = 64 * MiB,
+                  batches: int = SHARDED_BATCHES, seed: int = 0,
+                  num_workers: int = 2, workdir: Path | None = None) -> dict:
+    """The ``sharded`` phase: the system's own deployment
+    (``TopologyCluster`` on ``SHARDED_TOPOLOGY`` with TLS, the
+    chunkservers' block cache off; every chunkserver's blockport must be
+    the native engine), driven through the port's ``Client`` as the
+    reference's fault tiers build theirs (every master, the config server,
+    ``ClientTls``, ``local_reads=False``: every byte crosses an encrypted
+    blockport), ``block_size`` blocks:
+
+    1. the ``dataset`` phase's token file (``file_bytes``) written at 3x to
+       ``SHARDED_STAGING``, then renamed across the shards to
+       ``SHARDED_TOKENS``;
+    2. the ``restore`` phase's rank shard (``ckpt_state(params)``) saved by
+       the port's ``CheckpointManager`` at ``SHARDED_CKPT`` (3x hot copy,
+       RS(3,2) cold copy): step 1 healthy; step 2 with its shard's leader
+       SIGKILLed once its first blob has started, published through the
+       new leader (:func:`_save_through_failover`);
+    3. ``/`` listed across the shards, against each shard's own listing;
+    4. step 2 restored into ``device``, every block verified on the
+       device as it lands, bit-exact;
+    5. the token file read through the infeed, the owning shard's leader
+       SIGKILLed after the first batch (:func:`_sharded_infeed`);
+    6. the degraded restore (:func:`_sharded_degraded`).
+
+    A write or save the cluster fails (an election, by a kill or by the
+    load) is resumed until it lands (:func:`_until_done`); the output
+    says which were. Raises on any mismatch, or when a module of the JAX package or of JAX
+    is loaded."""
+    from tpudfs_torch.client.client import Client
+    from tpudfs_torch.cluster import TopologyCluster
+
+    root = Path(workdir) if workdir is not None else REPO / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_", dir=root))
+    tokens = np.random.default_rng(seed + 4).integers(
+        0, GPT2_VOCAB, file_bytes // 2, dtype=np.uint16)
+    t_phase = time.perf_counter()
+    try:
+        with TopologyCluster(tmp, SHARDED_TOPOLOGY, tls=True,
+                             cache_blocks=0) as cluster:
+            # The reference's checkpoint tiers' retry count (max_retries=8)
+            # rides out an election the load alone can cause.
+            factory = functools.partial(
+                Client, cluster.all_masters,
+                config_addrs=[cluster.config_addr], tls=cluster.client_tls,
+                block_size=block_size, max_retries=8, local_reads=False)
+
+            async def run() -> dict:
+                client = factory(etag_mode="crc64")
+                try:
+                    engines = {cs.name: (await client.rpc.call(
+                        cs.addr, "ChunkServerService", "DataPort",
+                        {}))["native"] for cs in cluster.chunkservers}
+                    if not all(engines.values()):
+                        raise AssertionError(
+                            f"sharded: a chunkserver serves its TLS "
+                            f"blockport from the asyncio fallback, not the "
+                            f"native engine: {engines}")
+                    out = {"engines": engines}
+                    t0 = time.perf_counter()
+                    written = await _until_done(
+                        "the dataset's write",
+                        lambda: client.create_file(
+                            SHARDED_STAGING, memoryview(tokens.view(np.uint8)),
+                            overwrite=True))
+                    write_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    await client.rename_file(SHARDED_STAGING, SHARDED_TOKENS)
+                    rename_s = time.perf_counter() - t0
+                    owner = client.shard_map.get_shard
+                    info = await client.get_file_info(SHARDED_TOKENS)
+                    if owner(SHARDED_STAGING) == owner(SHARDED_TOKENS) or \
+                            await client.get_file_info(SHARDED_STAGING) or \
+                            info is None or info["size"] != tokens.nbytes:
+                        raise AssertionError("sharded: the cross-shard "
+                                             "rename did not land")
+                    out["dataset"] = {
+                        "bytes": tokens.nbytes, "write_s": write_s,
+                        "write_gbps": tokens.nbytes / write_s / 1e9,
+                        "rename_s": rename_s, "written": written,
+                        "from": [SHARDED_STAGING, owner(SHARDED_STAGING)],
+                        "to": [SHARDED_TOKENS, owner(SHARDED_TOKENS)]}
+
+                    ckpt_shard = owner(SHARDED_CKPT + "/")
+                    log = PutLog(client)
+                    reader = HbmReader(client, [device])
+                    mgr = CheckpointManager(log, SHARDED_CKPT, num_shards=1,
+                                            ec=CKPT_EC, reader=reader)
+                    trees.update({s: ckpt_state(params, seed + 1 + 2 * s,
+                                                device) for s in (1, 2)})
+                    sync(device)
+                    t0 = time.perf_counter()
+                    step1 = await _until_done(
+                        "step 1's save", lambda: mgr.save(1, {0: trees[1]}))
+                    step1_s = time.perf_counter() - t0
+                    failover = await _save_through_failover(
+                        mgr, log, cluster, client, ckpt_shard, trees[2])
+                    steps = await mgr.list_steps()
+                    if steps != [1, 2]:
+                        raise AssertionError(f"sharded: steps {steps}")
+                    # Step 2's own files, as its published manifest names
+                    # them: the restores read these.
+                    spec = (await mgr.read_manifest(2))["shards"][0]
+                    out["save"] = {
+                        "shard": ckpt_shard, "payload_bytes": spec["size"],
+                        "step1_s": step1_s, "step1": step1,
+                        "save_gbps": [spec["size"] / step1_s / 1e9,
+                                      spec["size"] / failover["seconds"]
+                                      / 1e9],
+                        "failover": failover,
+                        "stats": dict(mgr.stats)}
+
+                    listed = await client.list_files("/")
+                    own = await _shard_listings(cluster, client, "/")
+                    union = sorted(p for ps in own.values() for p in ps)
+                    want = {SHARDED_TOKENS,
+                            ckptpaths.manifest_path(SHARDED_CKPT, 1),
+                            ckptpaths.manifest_path(SHARDED_CKPT, 2)}
+                    if listed != union or not want <= set(listed) or \
+                            not all(own.values()) or any(
+                                owner(p) != sid for sid, ps in own.items()
+                                for p in ps):
+                        raise AssertionError(
+                            f"sharded: listed {listed}, shards {own}")
+                    out["listing"] = {"files": len(listed),
+                                      "per_shard": {k: len(v)
+                                                    for k, v in own.items()}}
+
+                    before = launch_counts()
+                    sync(device)
+                    t0 = time.perf_counter()
+                    got = (await mgr.restore(2, device=device))[0]
+                    sync(device)
+                    seconds = time.perf_counter() - t0
+                    _check_restored(got, trees[2], device)
+                    del got
+                    launched = _delta(launch_counts(), before)
+                    full = spec["size"] // block_size
+                    if device.type == "cuda" and (
+                            launched["crc32c_blocks"] < full
+                            or launched["crc32c_chunks"] < 1):
+                        raise AssertionError(f"sharded: {full + 1} blocks "
+                                             f"restored, {launched}")
+                    out["restore"] = {
+                        "seconds": seconds,
+                        "gbps": spec["size"] / seconds / 1e9,
+                        "blocks": -(-spec["size"] // block_size),
+                        "launches": launched}
+                    out["tokens_shard"] = owner(SHARDED_TOKENS)
+                    out["raft"] = await _raft_terms(cluster, client)
+                    return out
+                finally:
+                    await client.close()
+
+            async def degraded() -> dict:
+                client = factory()
+                try:
+                    reader = HbmReader(client, [device])
+                    mgr = CheckpointManager(client, SHARDED_CKPT,
+                                            num_shards=1, ec=CKPT_EC,
+                                            reader=reader)
+                    spec = (await mgr.read_manifest(2))["shards"][0]
+                    return await _sharded_degraded(
+                        mgr, client, cluster, reader, spec, trees[2], device)
+                finally:
+                    await client.close()
+
+            trees = {}
+            out = asyncio.run(run())
+            # The infeed's spawned loader workers build clients of their
+            # own from the factory; it runs between the event loops.
+            out["dataset_read"] = _sharded_infeed(
+                cluster, factory, tokens, out.pop("tokens_shard"), device,
+                batches=batches, seed=seed, num_workers=num_workers)
+            out["degraded"] = asyncio.run(degraded())
+            start_s = cluster.start_s
+            shards = cluster.shards
+    except BaseException:
+        # The servers' logs outlive a failed run, for the post-mortem.
+        kept = root / "sharded_logs"
+        shutil.rmtree(kept, ignore_errors=True)
+        if (tmp / "logs").exists():
+            shutil.copytree(tmp / "logs", kept, dirs_exist_ok=True)
+        raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    foreign = _foreign_modules()
+    if foreign:
+        raise AssertionError(f"sharded: loaded {foreign}")
+    kills = [out["save"]["failover"]["killed"],
+             out["dataset_read"]["killed"], *out["degraded"]["killed"]]
+    del trees
+    reduced = [] if params == CKPT_PARAMS else [
+        f"params_per_rank {params} of {CKPT_PARAMS}"]
+    if file_bytes != 1 << 30:
+        reduced.append(f"dataset {file_bytes} of {1 << 30} bytes")
+    if block_size != 64 * MiB:
+        reduced.append(f"block_size {block_size} of {64 * MiB}")
+    seconds = time.perf_counter() - t_phase
+    return {"phase": "sharded", "device": str(device), "seed": seed,
+            "topology": SHARDED_TOPOLOGY.stem, "shards": shards,
+            "config_servers": 1, "chunkservers": len(out["engines"]),
+            "tls": True, "engine": "native", "block_size": block_size,
+            "chunkserver_cache_blocks": 0, "start_s": start_s, **out,
+            "save_gbps": out["save"]["save_gbps"],
+            "failover_s": out["save"]["failover"]["failover_s"],
+            "restore_gbps": out["restore"]["gbps"],
+            "degraded_gbps": out["degraded"]["gbps"],
+            "records_per_s": out["dataset_read"]["records_per_s"],
+            "kills": kills, "seconds": seconds,
+            "budget_s": SHARDED_BUDGET_S, "reduced": reduced,
+            "cut": None if batches == SHARDED_BATCHES else
+            f"dataset read cut to {batches} of {SHARDED_BATCHES} batches",
+            "departures": ["1 config server, not the Helm chart's 3",
+                           "no S3 gateway"],
             "foreign_modules": foreign}
 
 
@@ -2350,46 +2805,64 @@ def _bench_kernel_times(device, rng, run, phase, table) -> None:
         rows[name][f"at_{key}"] = row
 
 
+def _block_and_decode_rows(device, rng, run, key: str, ec: tuple, phase,
+                           table) -> None:
+    """The fused CRC of one block at ``run``'s block size and the RS(k, m)
+    decode that rebuilt the first block ``run`` lost data shards of, from
+    the shards that survived (a (k, k) matrix at one block's padded shard
+    width; its bound counts k rows in and k out), each with ``run``'s
+    launches: added to the kernel_times phase as
+    ``crc32c_blocks_<key>_block`` and ``gf256_matmul_<key>_decode`` and,
+    nested, to the table's rows."""
+    launches = run["launches"]
+    wcontrib = host_to_device(word_contrib_table(), device)
+    c = run["block_size"] // CHECKSUM_CHUNK_SIZE
+    fold = fold_table_device(c, device)
+    block = device_words(rng, (c, 128), device)
+    rows = {row["name"]: row for row in table}
+    row = _timed_row(
+        device, lambda: crc32c_blocks_device(block, 1),
+        lambda: crc32c_blocks_plain(block, 1, wcontrib, inv_contrib(), fold),
+        _blocks_bytes(c, 1), launches["crc32c_blocks"], chunks=c, nblocks=1)
+    phase[f"crc32c_blocks_{key}_block"] = row
+    rows["crc32c_blocks"][f"at_{key}_block"] = row
+    del block
+    k, m = ec
+    w = pad_shard_len(-(-run["block_size"] // k)) // 4
+    present = tuple(run["degraded"]["first_block_present"])
+    dec = matrix_bits_device(decode_matrix(k, m, present), device)
+    shards = device_words(rng, (k, w), device)
+    row = _timed_row(
+        device, lambda: gf_matmul_words(shards, dec),
+        lambda: gf_rows_plain(shards, dec), 2 * k * w * 4 + dec.numel() * 4,
+        launches["gf256_matmul"], words=w, matrix=[k, k],
+        present=list(present))
+    phase[f"gf256_matmul_{key}_decode"] = row
+    rows["gf256_matmul"][f"at_{key}_decode"] = row
+
+
 def _cluster_kernel_times(device, rng, run, phase, table) -> None:
-    """Both kernels at the cluster phase's shapes, added to the
-    kernel_times phase and, nested, to the table's rows, each with the
-    cluster phase's launches: the fused CRC of one combiner round
-    (``COMBINED_BATCH`` blocks of the phase's block size) and of one block
-    (the per-block path), and the RS(3,2) decode that rebuilt the EC
-    file's first block from the shards that survived the kills (a (k, k)
-    matrix at one block's padded shard width; its bound counts k rows in
-    and k out)."""
+    """Both kernels at the cluster phase's shapes, with its launches: the
+    fused CRC of one combiner round (``COMBINED_BATCH`` blocks), then
+    :func:`_block_and_decode_rows` (the per-block path's block, the EC
+    file's rebuild)."""
     launches = run["launches"]
     wcontrib = host_to_device(word_contrib_table(), device)
     c = run["block_size"] // CHECKSUM_CHUNK_SIZE
     nb = COMBINED_BATCH
     fold = fold_table_device(c, device)
     words = device_words(rng, (nb * c, 128), device)
-    by_shape = {"cluster_round": ("crc32c_blocks", _timed_row(
+    row = _timed_row(
         device, lambda: crc32c_blocks_device(words, nb),
         lambda: crc32c_blocks_plain(words, nb, wcontrib, inv_contrib(), fold),
         _blocks_bytes(c, nb), launches["crc32c_blocks"], chunks=nb * c,
-        nblocks=nb))}
-    block = words[:c]
-    by_shape["cluster_block"] = "crc32c_blocks", _timed_row(
-        device, lambda: crc32c_blocks_device(block, 1),
-        lambda: crc32c_blocks_plain(block, 1, wcontrib, inv_contrib(), fold),
-        _blocks_bytes(c, 1), launches["crc32c_blocks"], chunks=c, nblocks=1)
-    del words, block
-    k, m = run["ec"]
-    w = pad_shard_len(-(-run["block_size"] // k)) // 4
-    present = tuple(run["degraded"]["first_block_present"])
-    dec = matrix_bits_device(decode_matrix(k, m, present), device)
-    shards = device_words(rng, (k, w), device)
-    by_shape["cluster_decode"] = "gf256_matmul", _timed_row(
-        device, lambda: gf_matmul_words(shards, dec),
-        lambda: gf_rows_plain(shards, dec), 2 * k * w * 4 + dec.numel() * 4,
-        launches["gf256_matmul"], words=w, matrix=[k, k],
-        present=list(present))
-    rows = {row["name"]: row for row in table}
-    for key, (name, row) in by_shape.items():
-        phase[f"{name}_{key}"] = row
-        rows[name][f"at_{key}"] = row
+        nblocks=nb)
+    del words
+    phase["crc32c_blocks_cluster_round"] = row
+    next(r for r in table if r["name"] == "crc32c_blocks")[
+        "at_cluster_round"] = row
+    _block_and_decode_rows(device, rng, run, "cluster", run["ec"], phase,
+                           table)
 
 
 def main(argv=None) -> int:
@@ -2431,11 +2904,15 @@ def main(argv=None) -> int:
     cluster = _engine_counted(lambda: _counted(
         lambda: cluster_phase(device, seed=args.seed)))
     emit(cluster)
+    sharded = _engine_counted(lambda: _counted(
+        lambda: sharded_phase(device, seed=args.seed)))
+    emit(sharded)
     dataset = _counted(lambda: dataset_path(device, seed=args.seed))
     emit(dataset)
     bench_run = _engine_counted(lambda: bench_phase(device))
     emit(bench_run)
-    for phase in (host, result, write, restore, cluster, bench_run):
+    for phase in (host, result, write, restore, cluster, sharded,
+                  bench_run):
         calls = phase["engine_calls"]
         never = [k for k in PATH_ENGINE[phase["phase"]] if not calls[k]]
         if never:
@@ -2444,7 +2921,8 @@ def main(argv=None) -> int:
     by_path = {"read_path": result["launches"],
                **{p["phase"]: p["launches"]
                   for p in batched + [write, ec, entry_run, dryrun, restore,
-                                      cluster, dataset, bench_run]}}
+                                      cluster, sharded, dataset,
+                                      bench_run]}}
     for path, counts in by_path.items():
         never = [k for k in PATH_KERNELS[path] if not counts[k]]
         if never:
@@ -2456,6 +2934,8 @@ def main(argv=None) -> int:
     _entry_kernel_times(device, rng, entry_run, dryrun, phase, table)
     _bench_kernel_times(device, rng, bench_run, phase, table)
     _cluster_kernel_times(device, rng, cluster, phase, table)
+    _block_and_decode_rows(device, rng, sharded, "sharded", CKPT_EC, phase,
+                           table)
     emit(phase)
     emit({"phase": "kernels", "launches": counts, "by_path": by_path})
     emit({"kernels": table})

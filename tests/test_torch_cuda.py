@@ -995,3 +995,130 @@ def test_ckpt_chaos_on_card(cuda_device, tmp_path):
     report["rebuild_decode"] = _rebuild_decode_row(cuda_device)
     report["device"] = torch.cuda.get_device_name(0)
     print("CHAOS_ON_CARD " + json.dumps(report), flush=True)
+
+
+#: The roulette axis's seed on the sharded deployment: its plan SIGKILLs
+#: both shards' leaders (shard-z's owns the checkpoint) and one
+#: chunkserver.
+SHARDED_PLAN_SEED = 10
+
+
+def _sharded_chaos_parts(device, root, kib: int,
+                         seed: int = SHARDED_PLAN_SEED) -> dict:
+    """The fault tier's checkpoint stages on the system's own deployment:
+    ``TopologyCluster`` on ``deploy/topologies/two-shard-ha.json`` with TLS
+    (a fresh one a stage), the port's client built as the reference's
+    tiers build theirs (every master, the config server, ``ClientTls``,
+    256 KiB blocks, ``rpc_timeout=3.0``, ``max_retries=8``, no local
+    short circuit), restores through an ``HbmReader`` on ``device``:
+    kill-mid-checkpoint at ``/a/chaos-ckpt`` (t10, hot-only), then the
+    roulette's checkpoint axis at ``/a/roulette-ckpt`` (RS(2,1)) through
+    ``kill_plan(..., shards=)``'s seeded chunkserver and master kills,
+    with its settle-and-verify. Returns each stage's seconds, kernel
+    launches and result."""
+    import random
+    import time
+    from pathlib import Path
+
+    from tpudfs_torch import ckpt_chaos as cc
+    from tpudfs_torch.client.client import Client
+    from tpudfs_torch.cluster import TopologyCluster
+    from tpudfs_torch.graft_entry import launch_counts
+
+    topology = Path(__file__).resolve().parents[1] / "deploy" \
+        / "topologies" / "two-shard-ha.json"
+
+    async def t10(cluster, client, reader):
+        servers = cluster.chunkservers
+
+        async def kill_first():
+            servers[0].kill()
+            await asyncio.sleep(MASTER_DROPS_DEAD_S)
+
+        def kill_mid():
+            for p in servers[1:3]:
+                p.kill()
+
+        return await cc.kill_mid_checkpoint(
+            client, kill_first, kill_mid, base="/a/chaos-ckpt", kib=kib,
+            reader=reader, device=device)
+
+    async def roulette(cluster, client, reader):
+        by_name = {cs.name: cs for cs in cluster.chunkservers}
+        rng = random.Random(seed)
+        plan = cc.kill_plan(rng, by_name, shards=cluster.shards)
+        mgr = cc.roulette_manager(client, reader=reader)
+        kills = []
+
+        async def faults():
+            kills.extend(await cc.run_kill_plan(
+                plan, lambda name: by_name[name].kill(),
+                lambda shard, leader: cluster.kill_master(
+                    shard, leader, client=client)))
+
+        attempted, published = await cc.save_through_faults(
+            mgr, steps=4, rng=rng, kib=kib, faults=faults)
+        out = await cc.settle_and_verify(mgr, attempted, published,
+                                         kib=kib, device=device)
+        return {"plan": [[t, v if isinstance(v, str) else v._asdict()]
+                         for t, v in plan],
+                "kills": kills, "attempted": attempted,
+                "ckpt_shard": client.shard_map.get_shard(mgr.base + "/"),
+                **out}
+
+    report = {}
+    for name, stage in (("t10", t10), ("roulette", roulette)):
+        part_root = root / name
+        part_root.mkdir()
+        with TopologyCluster(part_root, topology, tls=True) as cluster:
+            async def run() -> dict:
+                client = Client(cluster.all_masters,
+                                config_addrs=[cluster.config_addr],
+                                tls=cluster.client_tls,
+                                block_size=256 * 1024, rpc_timeout=3.0,
+                                max_retries=8, local_reads=False)
+                try:
+                    return await stage(cluster, client,
+                                       HbmReader(client, [device]))
+                finally:
+                    await client.close()
+
+            before, t0 = launch_counts(), time.perf_counter()
+            result = asyncio.run(run())
+            seconds = time.perf_counter() - t0
+            after = launch_counts()
+            start_s = cluster.start_s
+        report[name] = {"seconds": seconds, "start_s": start_s,
+                        "launches": {k: after[k] - before[k] for k in after},
+                        "result": result}
+    return report
+
+
+def test_sharded_ckpt_chaos_on_card(cuda_device, tmp_path):
+    """The fault tier's checkpoint stages on the two-shard-ha TLS
+    deployment, every restore into ``cuda:0`` bit-exact (each stage checks
+    it), at 4 MiB trees (about 3.4 MB a shard, 256 KiB blocks): t10 tears
+    and resumes a save; the roulette axis's plan SIGKILLs at least one
+    master (and the checkpoint shard's leader), no torn step is listed,
+    every acked step is listed. Prints one ``SHARDED_CHAOS_ON_CARD`` JSON
+    line."""
+    import json
+
+    report = _sharded_chaos_parts(cuda_device, tmp_path, 4096)
+    for name in ("t10", "roulette"):
+        launches = report[name]["launches"]
+        assert launches["crc32c_blocks"] + launches["crc32c_chunks"] > 0, \
+            (name, launches)
+    t10 = report["t10"]["result"]
+    assert t10["mid_save"] and t10["interrupted"], t10
+    assert t10["resume_puts"][0] == 0 and t10["resume_puts"][1] >= 1, t10
+    roulette = report["roulette"]["result"]
+    masters = [k for k in roulette["kills"] if "shard" in k]
+    assert masters and all(k["killed"] for k in masters), roulette
+    assert any(k["shard"] == roulette["ckpt_shard"] and k["leader"]
+               for k in masters), roulette
+    assert roulette["acked"], roulette
+    assert set(roulette["acked"]) <= set(roulette["listed"]), roulette
+    assert set(roulette["restore_s"]) == set(roulette["listed"]), roulette
+    report["device"] = torch.cuda.get_device_name(0)
+    print("SHARDED_CHAOS_ON_CARD " + json.dumps(report), flush=True)

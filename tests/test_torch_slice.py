@@ -397,7 +397,7 @@ def test_port_sources_name_no_jax_or_tpudfs_import():
                  "sweep_lab.py", "common/layout.py", "ckpt_chaos.py",
                  "client/client.py", "cluster.py", "common/rpc.py",
                  "common/resilience.py", "common/sharding.py",
-                 "common/blocknet.py", "common/writestream.py"):
+                 "common/blocknet.py", "common/writestream.py", "pki.py"):
         assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):

@@ -11,7 +11,8 @@ of the checkpoint stages of the JAX package's three fault tiers:
   manager, ``checkpointer``, ``settle`` and the post-fault check):
   :func:`roulette_manager`, :func:`save_through_faults`,
   :func:`settle_and_verify`, with :func:`kill_plan` / :func:`run_kill_plan`
-  for a seeded plan of chunkserver kills;
+  for a seeded plan of chunkserver kills, and of master kills on a
+  sharded deployment (``shards=``, drawn as ``make_plan`` draws them);
 - and one stage of its own, :func:`rebuild_after_kills`: an EC-only
   checkpoint whose data-shard holders die, restored through the GF(2^8)
   rebuild.
@@ -39,6 +40,7 @@ import json
 import logging
 import random
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -114,9 +116,10 @@ async def _call(fn, *args):
     return out
 
 
-def _is_fault(exc: BaseException) -> bool:
-    """An error a save may die of while chunkservers die (the roulette's
-    ``DfsError, BudgetExhausted, asyncio.TimeoutError, OSError``)."""
+def is_fault(exc: BaseException) -> bool:
+    """An error a save may die of while servers die or elect (the
+    roulette's ``DfsError, BudgetExhausted, asyncio.TimeoutError,
+    OSError``)."""
     return isinstance(exc, (asyncio.TimeoutError, OSError)) or any(
         is_error_named(exc, n) for n in ("DfsError", "BudgetExhausted"))
 
@@ -311,7 +314,7 @@ def ckpt_scenario(recorder_cls, check_history, violation):
 # ------------------------------------------------ kill mid-checkpoint (t10)
 
 
-async def _until(what: str, op, deadline_s: float) -> float:
+async def retry_until(what: str, op, deadline_s: float) -> float:
     """Retry ``op()`` once a second until it succeeds; raise after
     ``deadline_s``. Returns the seconds it took."""
     loop = asyncio.get_running_loop()
@@ -336,7 +339,7 @@ async def _restore_checked(mgr, step: int, kib: int, device) -> float:
     return seconds
 
 
-class _PutLog:
+class PutLog:
     """``client`` with its ``create_file`` calls logged by path, so a stage
     can see a save's own progress: ``started(path)`` is set when a put of
     ``path`` begins, ``returned`` holds the puts that have returned."""
@@ -390,7 +393,7 @@ async def kill_mid_checkpoint(client, kill_first, kill_mid, *, base: str,
     manager's ``shards_skipped`` and ``degraded_shard_reads``, and each
     step's restore seconds."""
     device = resolve_device(device)
-    log = _PutLog(client)
+    log = PutLog(client)
     mgr = CheckpointManager(log, base, num_shards=2, ec=None, reader=reader)
     trees = {s: _trees(s, kib) for s in (1, 2)}
     paths = {s: ckptpaths.shard_data_path(base, 2, s) for s in (0, 1)}
@@ -421,7 +424,7 @@ async def kill_mid_checkpoint(client, kill_first, kill_mid, *, base: str,
                 "ended unfinished" if interrupted else "had finished")
 
     puts_before = len(log.calls)
-    resumed_s = await _until("step-2 resume",
+    resumed_s = await retry_until("step-2 resume",
                              lambda: mgr.save(2, trees[2]), resume_s)
     resume_puts = {s: log.calls[puts_before:].count(p)
                    for s, p in paths.items()}
@@ -454,32 +457,83 @@ def roulette_manager(client, *, reader):
                              ec=(2, 1), reader=reader)
 
 
-def kill_plan(rng: random.Random, names, *, first: tuple = (1.0, 3.0),
-              gap: tuple = (1.0, 3.0)) -> list[tuple[float, str]]:
-    """A seeded, survivable plan of one or two chunkserver kills (RS(2,1)
-    still places on three of five), ``[(offset_s, victim), ...]`` with
-    offsets from the plan's start drawn as the roulette draws them
-    (``first``, then ``gap`` apart)."""
+class MasterKill(NamedTuple):
+    """A plan's master kill: one member of ``shard``'s Raft group, its
+    leader when ``leader`` is set, else a member that does not lead; which
+    one is decided when the kill is injected."""
+
+    shard: str
+    leader: bool
+
+
+def kill_plan(rng: random.Random, names, *, shards: dict | None = None,
+              first: tuple = (1.0, 3.0), gap: tuple = (1.0, 3.0)) -> list:
+    """A seeded, survivable plan of kills, ``[(offset_s, victim), ...]``,
+    with offsets from the plan's start drawn as the roulette draws them
+    (``first``, then ``gap`` apart).
+
+    Without ``shards``: one or two chunkserver kills of ``names`` (RS(2,1)
+    still places on three of five). With ``shards`` (``{shard_id:
+    [master addresses]}``): two to four kills drawn as the roulette's
+    ``make_plan`` draws them, less its partitions: a chunkserver kill
+    while fewer than two were drawn, or a :class:`MasterKill` of a shard
+    whose group has 3 or more members and none drawn yet (quorum holds),
+    its leader with probability 0.7."""
     names = sorted(names)
     plan, t = [], rng.uniform(*first)
-    for _ in range(rng.randint(1, 2)):
-        victim = rng.choice(names)
-        names.remove(victim)
+    if shards is None:
+        for _ in range(rng.randint(1, 2)):
+            victim = rng.choice(names)
+            names.remove(victim)
+            plan.append((t, victim))
+            t += rng.uniform(*gap)
+        return plan
+    groups = sorted(s for s, peers in shards.items() if len(peers) >= 3)
+    cs_kills = 0
+    for _ in range(rng.randint(2, 4)):
+        kinds = (["cs"] if cs_kills < 2 and names else []) \
+            + (["master"] if groups else [])
+        if not kinds:
+            break
+        if rng.choice(kinds) == "cs":
+            victim = rng.choice(names)
+            names.remove(victim)
+            cs_kills += 1
+        else:
+            shard = rng.choice(groups)
+            groups.remove(shard)
+            victim = MasterKill(shard, rng.random() < 0.7)
         plan.append((t, victim))
         t += rng.uniform(*gap)
     return plan
 
 
-async def run_kill_plan(plan, kill) -> None:
-    """Inject ``plan``'s kills at their offsets: ``kill(victim)``."""
+async def run_kill_plan(plan, kill, kill_master=None) -> list[dict]:
+    """Inject ``plan``'s kills at their offsets: ``kill(victim)`` for a
+    chunkserver, ``kill_master(shard, leader)`` for a :class:`MasterKill`
+    (it returns what it killed, or None when it skipped: no leader while
+    an election runs). Returns each kill's offset, victim and outcome."""
     loop = asyncio.get_running_loop()
     t0 = loop.time()
+    done = []
     for offset, victim in plan:
         wait = offset - (loop.time() - t0)
         if wait > 0:
             await asyncio.sleep(wait)
-        await _call(kill, victim)
-        logger.info("+%.1fs killed %s", offset, victim)
+        if isinstance(victim, MasterKill):
+            if kill_master is None:
+                raise ValueError("the plan holds a master kill and no "
+                                 "kill_master was given")
+            out = await _call(kill_master, victim.shard, victim.leader)
+            done.append({"offset": offset, "shard": victim.shard,
+                         "leader": victim.leader, "killed": out})
+            logger.info("+%.1fs master of %s (leader=%s): %s", offset,
+                        victim.shard, victim.leader, out or "skipped")
+        else:
+            await _call(kill, victim)
+            done.append({"offset": offset, "killed": victim})
+            logger.info("+%.1fs killed %s", offset, victim)
+    return done
 
 
 async def save_through_faults(mgr, *, steps: int, rng: random.Random,
@@ -502,7 +556,7 @@ async def save_through_faults(mgr, *, steps: int, rng: random.Random,
                 if injector is None:
                     injector = asyncio.ensure_future(faults())
             except Exception as e:
-                if not _is_fault(e):
+                if not is_fault(e):
                     raise
                 logger.info("step %d save interrupted (%s)", step,
                             type(e).__name__)

@@ -28,9 +28,18 @@ reference's names, retries and error conventions:
 The device paths of the port (``gpu/hbm_reader.py``, ``gpu/read_combiner.py``,
 ``gpu/checkpoint.py``, ``gpu/record_source.py``, ``gpu/wds.py``) take this
 client, the colocated :class:`~tpudfs_torch.client.local.LocalClient`, or
-any client with the same methods. The cluster-admin calls
-(``safe_mode_status``, ``cluster_*``, ``initiate_shuffle``,
-``raft_state``) and ``rename_file`` are not ported.
+any client with the same methods. The namespace calls include
+``rename_file`` (a cross-shard rename is the masters' two-phase commit),
+and the cluster-admin calls (``safe_mode_status``, ``set_safe_mode``,
+``cluster_add_server``, ``cluster_remove_server``,
+``cluster_transfer_leadership``, ``initiate_shuffle``, ``raft_state``)
+send the reference's requests and return its answers.
+
+A sharded deployment: give ``config_addrs`` and any masters; the client
+fetches the shard map from a config server on its first ``REDIRECT:`` or
+listing, routes each path to its shard's Raft group and fans listings out
+over every shard. ``tls=ClientTls(...)`` puts every channel, gRPC and
+blockport, under TLS.
 
 Nothing here opens a socket before its first call, and every channel is
 made inside the event loop that uses it, so a client may be built before a
@@ -175,6 +184,10 @@ class Client:
         #: are capped at a fixed fraction of first-try volume so a slow
         #: server sees shrinking — not amplified — load.
         self.retry_budget = RetryBudget()
+        #: Masters that refused or timed out, with the time their ban
+        #: ends (``REFUSED_TTL``), shared by every call: a call starts at
+        #: the first target not banned (see ``_execute``).
+        self._refused: dict[str, float] = {}
         #: Per-replica-address circuit breakers biasing read ordering away
         #: from addresses that keep failing (ordering only — never drops
         #: the last candidate).
@@ -410,7 +423,15 @@ class Client:
         #: election may be the healthy new leader seconds later, and a
         #: permanent ban would exclude it for the rest of a long call
         #: (test_chaos lease-window partition caught exactly that).
-        refused: dict[str, float] = {}
+        #
+        # The bans are the client's, not the call's: a call that started
+        # at a dead master every time would deposit its first attempt's
+        # retry token in the dead master's bucket and spend the retry from
+        # the next target's, whose bucket no first attempt refills; once
+        # it ran dry, every call on the shard failed at its first refusal
+        # ("retry budget exhausted after attempt 1"). So a call starts at
+        # the first target not banned.
+        refused = self._refused
 
         def _refused(addr: str) -> bool:
             exp = refused.get(addr)
@@ -432,6 +453,9 @@ class Client:
                     i += 1
             return i
 
+        if any(not _refused(t) for t in targets):
+            while _refused(targets[idx % len(targets)]):
+                idx += 1
         hint_follows = 0  # free immediate hint-follows used so far
         try:
             return await self._execute_attempts(
@@ -1255,6 +1279,15 @@ class Client:
                             retry_benign=("NOT_FOUND",))
 
     @_budgeted
+    async def rename_file(self, src: str, dst: str,
+                          replace: bool = False) -> None:
+        """``replace=True`` atomically swaps out an existing destination
+        (the S3 gateway's PUT-overwrite publish step)."""
+        await self._execute("Rename", {"src": src, "dst": dst,
+                                       "replace": replace}, path=src,
+                            retry_benign=("NOT_FOUND",))
+
+    @_budgeted
     async def publish_checkpoint(self, base: str, step: int,
                                  src: str, dst: str) -> bool:
         """Atomically publish a staged checkpoint manifest (phase two of
@@ -1305,3 +1338,32 @@ class Client:
             except DfsError as e:
                 logger.warning("list on shard %s failed: %s", shard, e)
         return sorted(out.items())
+
+    # ------------------------------------------------------------ admin ops
+
+    async def safe_mode_status(self) -> dict:
+        resp, _ = await self._execute("SafeModeStatus", {})
+        return resp
+
+    async def set_safe_mode(self, enter: bool) -> None:
+        await self._execute("EnterSafeMode" if enter else "ExitSafeMode", {})
+
+    async def cluster_add_server(self, address: str) -> None:
+        await self._execute("AddRaftNode", {"address": address})
+
+    async def cluster_remove_server(self, address: str) -> None:
+        await self._execute("RemoveRaftNode", {"address": address})
+
+    async def cluster_transfer_leadership(self, target: str) -> None:
+        await self._execute("TransferLeadership", {"target": target})
+
+    async def initiate_shuffle(self, prefix: str) -> None:
+        """Kick off background block re-spreading for a prefix (reference
+        InitiateShuffle master.rs:3620-3660, CLI `shuffle` dfs_cli.rs:96)."""
+        await self._execute("InitiateShuffle", {"prefix": prefix}, path=prefix)
+
+    async def raft_state(self, master: str) -> dict:
+        """``master``'s Raft status (``role``, ``term``, ``leader_id``,
+        ``config``, ...), asked of that master alone."""
+        return await self.rpc.call(self._dial(master), MASTER, "RaftState",
+                                   {}, timeout=5.0)

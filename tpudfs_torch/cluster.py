@@ -23,11 +23,25 @@ the start, with its log's tail in the error. The cluster is ready
 once the master places an RS(n_cs - 1, 1) probe file on every chunkserver,
 which it does only when all of them are registered and it has left safe
 mode.
+
+The system's own deployment is :class:`TopologyCluster`, the port's copy
+of ``scripts/start_cluster.py``: a config server, one master Raft group
+a shard and the chunkservers of a ``deploy/topologies/*.json`` spec,
+with TLS on every transport when asked. Leader discovery
+(:func:`find_leader`, :func:`find_leader_async`) asks each master for its
+Raft state over the wire (the client's ``raft_state``).
+
+    with TopologyCluster(root, REPO / "deploy/topologies/two-shard-ha.json",
+                         tls=True) as cluster:
+        client = Client(cluster.all_masters,
+                        config_addrs=[cluster.config_addr],
+                        tls=cluster.client_tls)
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import os
 import signal
 import socket
@@ -116,16 +130,20 @@ def terminate_all(procs: list[subprocess.Popen], grace: float = 5.0) -> None:
 
 
 @dataclass
-class ChunkServerProc:
+class ServerProc:
     name: str
     proc: subprocess.Popen
     addr: str
-    data_dir: Path
 
     def kill(self) -> None:
         """SIGKILL, and reap."""
         self.proc.send_signal(signal.SIGKILL)
         self.proc.wait(timeout=30)
+
+
+@dataclass
+class ChunkServerProc(ServerProc):
+    data_dir: Path
 
 
 class ProcessCluster:
@@ -225,6 +243,326 @@ class ProcessCluster:
         terminate_all(self.procs)
 
     def __enter__(self) -> "ProcessCluster":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+# ------------------------------------------------------ leader discovery
+
+
+async def find_leader_async(addrs, *, tls=None, client=None,
+                            timeout: float = 20.0) -> str | None:
+    """The address among ``addrs`` whose master says it leads, asked with
+    the client's ``raft_state`` (``client``, or one made here with
+    ``tls``); ``None`` when none does within ``timeout`` seconds (an
+    election is still running: the caller skips its action instead of
+    failing). Never blocks the event loop."""
+    own = client is None
+    if own:
+        from tpudfs_torch.client.client import Client
+
+        client = Client(list(addrs), tls=tls, max_retries=0,
+                        local_reads=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            for addr in addrs:
+                try:
+                    state = await client.raft_state(addr)
+                except Exception:
+                    continue  # dead or unreachable: not the leader
+                if state.get("role") == "leader":
+                    return addr
+            if time.monotonic() >= deadline:
+                return None
+            await asyncio.sleep(0.3)
+    finally:
+        if own:
+            await client.close()
+
+
+def find_leader(addrs, *, tls=None, timeout: float = 30.0) -> str:
+    """Blocking leader discovery: call it outside a running event loop.
+    Raises RuntimeError when no master of ``addrs`` leads within
+    ``timeout`` seconds."""
+    addr = asyncio.run(find_leader_async(addrs, tls=tls, timeout=timeout))
+    if addr is None:
+        raise RuntimeError(f"no leader among {list(addrs)} in {timeout} s")
+    return addr
+
+
+# ------------------------------------------------- the system's topology
+
+
+def load_topology(path) -> dict:
+    """A ``deploy/topologies/*.json`` spec with ``scripts/start_cluster.py``'s
+    defaults for what this launcher reads (``racks``,
+    ``split_threshold_rps``)."""
+    spec = json.loads(Path(path).read_text())
+    spec.setdefault("racks", 3)
+    spec.setdefault("split_threshold_rps", 100.0)
+    if not spec.get("shards"):
+        raise ValueError("a topology needs at least one shard")
+    return spec
+
+
+@dataclass
+class MasterProc(ServerProc):
+    shard: str
+
+
+#: Probe paths of the ready check, one a side of the bootstrap split at
+#: ``/m`` (with two shards, the second owns the keys up to ``/m``).
+READY_PROBES = ("/.cluster-ready", "/z/.cluster-ready")
+
+
+class TopologyCluster:
+    """The deployment a ``deploy/topologies/*.json`` spec describes, as OS
+    processes under ``root`` (logs in ``logs/``): 1 config server
+    (``cfg``), each shard's Raft group of masters (``<shard>-m<i>``),
+    registered with the config server before any master boots, and the
+    chunkservers (``cs<i>``, rack ``rack-{i % racks}``), each heartbeating
+    to every master and to the config server. ``spares`` and the S3
+    gateway are not started: neither is on the data path.
+
+    ``tls=True`` mints a PKI under ``root/pki`` (:mod:`tpudfs_torch.pki`)
+    and gives every server ``--tls-cert``, ``--tls-key`` and ``--tls-ca``:
+    gRPC listeners, Raft peer channels and the blockport all speak TLS;
+    ``client_tls`` is the matching ``ClientTls``. ``cache_blocks`` sets
+    each chunkserver's ``BLOCK_CACHE_SIZE``.
+
+    Ready means: every shard has a leader, no shard is in safe mode, and
+    an RS(n_cs - 1, 1) probe file (every chunkserver registered) places on
+    every shard (:data:`READY_PROBES`). :meth:`start` runs its own event
+    loop: call it outside one."""
+
+    def __init__(self, root: str | Path, topology, *, tls: bool = False,
+                 cache_blocks: int | None = None):
+        self.root = Path(root)
+        self.spec = load_topology(topology)
+        if self.spec["chunkservers"] < 2:
+            raise ValueError("a topology needs at least 2 chunkservers")
+        self.tls = tls
+        self.cache_blocks = cache_blocks
+        self.procs: list[subprocess.Popen] = []
+        self.config_addr = ""
+        #: shard id -> its masters' addresses, in the spec's order.
+        self.shards: dict[str, list[str]] = {}
+        #: name -> master process.
+        self.masters: dict[str, MasterProc] = {}
+        self.chunkservers: list[ChunkServerProc] = []
+        self._named: list[tuple[str, subprocess.Popen]] = []
+        #: The PKI's path map (``make_test_pki``) and the client's TLS.
+        self.pki: dict | None = None
+        self.client_tls = None
+        #: Wall seconds of :meth:`start`, the PKI included.
+        self.start_s = 0.0
+
+    @property
+    def all_masters(self) -> list[str]:
+        return [a for addrs in self.shards.values() for a in addrs]
+
+    def _spawn(self, name: str, mod: str, *args: str,
+               env: dict | None = None) -> subprocess.Popen:
+        p = spawn(self.procs, name, self.root / "logs", mod, *args, env=env)
+        self._named.append((name, p))
+        return p
+
+    def start(self) -> "TopologyCluster":
+        t0 = time.perf_counter()
+        logdir = self.root / "logs"
+        logdir.mkdir(parents=True, exist_ok=True)
+        spec = self.spec
+        try:
+            tls_args: list[str] = []
+            if self.tls:
+                from tpudfs_torch.common.rpc import ClientTls
+                from tpudfs_torch.pki import make_test_pki
+
+                self.pki = make_test_pki(self.root / "pki")
+                tls_args = ["--tls-cert", self.pki["server_cert"],
+                            "--tls-key", self.pki["server_key"],
+                            "--tls-ca", self.pki["ca"]]
+                self.client_tls = ClientTls(ca_path=self.pki["ca"])
+            cfg_port = free_port()
+            cfg = self._spawn("cfg", "tpudfs.configserver",
+                              "--port", str(cfg_port),
+                              "--data-dir", str(self.root / "cfg"),
+                              "--http-port", "0", *tls_args)
+            self.config_addr = wait_ready(logdir, "cfg", cfg)
+            # Every master address is reserved up front and every shard
+            # registered before any master boots, so each master's first
+            # shard-map fetch sees the final layout (the order of AddShard
+            # decides the bootstrap split).
+            self.shards = {
+                s["id"]: [f"127.0.0.1:{free_port()}"
+                          for _ in range(s["masters"])]
+                for s in spec["shards"]}
+            asyncio.run(self._add_shards())
+            for sid, addrs in self.shards.items():
+                for i, addr in enumerate(addrs):
+                    name = f"{sid}-m{i}"
+                    p = self._spawn(
+                        name, "tpudfs.master",
+                        "--port", addr.rsplit(":", 1)[1],
+                        "--data-dir", str(self.root / name),
+                        "--peers", ",".join(a for a in addrs if a != addr),
+                        "--shard-id", sid,
+                        "--config-servers", self.config_addr,
+                        "--split-threshold-rps",
+                        str(spec["split_threshold_rps"]),
+                        "--http-port", "0", *tls_args)
+                    self.masters[name] = MasterProc(name, p, addr, sid)
+            for name, m in self.masters.items():
+                wait_ready(logdir, name, m.proc)
+            cs_env = {}
+            if self.cache_blocks is not None:
+                cs_env["BLOCK_CACHE_SIZE"] = str(self.cache_blocks)
+            started = []
+            for i in range(spec["chunkservers"]):
+                name, data_dir = f"cs{i}", self.root / f"cs{i}"
+                p = self._spawn(name, "tpudfs.chunkserver",
+                                "--port", "0", "--data-dir", str(data_dir),
+                                "--masters", ",".join(self.all_masters),
+                                "--config-servers", self.config_addr,
+                                "--rack-id", f"rack-{i % spec['racks']}",
+                                "--heartbeat-interval", "0.5",
+                                "--scrub-interval", "3600",
+                                "--http-port", "0", *tls_args, env=cs_env)
+                started.append((name, p, data_dir))
+                if i == 0:
+                    # The first one builds the servers' native library if
+                    # it is missing; the others start once it is ready.
+                    wait_ready(logdir, name, p)
+            for name, p, data_dir in started:
+                self.chunkservers.append(ChunkServerProc(
+                    name, p, wait_ready(logdir, name, p), data_dir))
+            asyncio.run(self._wait_ready())
+        except BaseException:
+            self.stop()
+            raise
+        self.start_s = time.perf_counter() - t0
+        return self
+
+    async def _add_shards(self) -> None:
+        """``ConfigService.AddShard`` for every shard, each retried for 30 s
+        while the config server elects itself."""
+        from tpudfs_torch.common.rpc import RpcClient
+
+        rpc = RpcClient(tls=self.client_tls)
+        try:
+            for sid, addrs in self.shards.items():
+                for attempt in range(60):
+                    self._check_alive()
+                    try:
+                        await rpc.call(self.config_addr, "ConfigService",
+                                       "AddShard",
+                                       {"shard_id": sid, "peers": addrs})
+                        break
+                    except Exception as e:
+                        if attempt == 59:
+                            raise RuntimeError(
+                                f"could not register {sid} with "
+                                f"{self.config_addr}: {e}") from None
+                        await asyncio.sleep(0.5)
+        finally:
+            await rpc.close()
+
+    async def _wait_ready(self) -> None:
+        """Until every shard has a leader and has left safe mode, and an
+        RS(n_cs - 1, 1) probe places on every shard."""
+        from tpudfs_torch.client.client import Client
+
+        deadline = time.monotonic() + REGISTER_TIMEOUT_S
+        # Two retries: a shard's first master may be a follower, whose
+        # Not-Leader hint the client follows.
+        client = Client(self.all_masters, config_addrs=[self.config_addr],
+                        tls=self.client_tls, max_retries=2,
+                        local_reads=False)
+        try:
+            for sid, addrs in self.shards.items():
+                if await find_leader_async(
+                        addrs, client=client,
+                        timeout=deadline - time.monotonic()) is None:
+                    raise RuntimeError(f"{sid} elected no leader in "
+                                       f"{REGISTER_TIMEOUT_S:.0f} s")
+                shard_client = Client(addrs, tls=self.client_tls,
+                                      max_retries=0, local_reads=False)
+                try:
+                    await self._until(deadline, f"{sid} left safe mode",
+                                      shard_client.safe_mode_status,
+                                      lambda st: not st["safe_mode"])
+                finally:
+                    await shard_client.close()
+            await client.refresh_shard_map()
+            owners = {client.shard_map.get_shard(p) for p in READY_PROBES}
+            if owners != set(self.shards):
+                raise RuntimeError(f"the probes {READY_PROBES} land on "
+                                   f"{owners}, not on every shard")
+            k = len(self.chunkservers) - 1
+            for path in READY_PROBES:
+                async def probe(path=path):
+                    await client.create_file(path, b"ready", ec=(k, 1),
+                                             overwrite=True)
+                    await client.delete_file(path)
+
+                await self._until(deadline, f"a probe placed at {path}",
+                                  probe)
+        finally:
+            await client.close()
+
+    async def _until(self, deadline: float, what: str, op,
+                     done=lambda _out: True) -> None:
+        while True:
+            self._check_alive()
+            try:
+                if done(await op()):
+                    return
+                err = "not yet"
+            except Exception as e:
+                err = e
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"not ready in {REGISTER_TIMEOUT_S:.0f} "
+                                   f"s: {what}: {err}")
+            await asyncio.sleep(0.2)
+
+    def _check_alive(self) -> None:
+        for name, p in self._named:
+            if p.poll() is not None:
+                log = self.root / "logs" / f"{name}.log"
+                tail = log.read_text()[-3000:] if log.exists() else ""
+                raise RuntimeError(f"{name} exited with {p.returncode}:\n"
+                                   f"{tail}")
+
+    async def kill_master(self, shard_id: str, leader: bool = True,
+                          client=None) -> tuple[str, str] | None:
+        """SIGKILL one live master of ``shard_id``: its leader, or when
+        ``leader`` is False a live member that does not lead. Returns the
+        victim's name and address, or ``None`` when ``leader`` is asked and
+        no live member leads within 20 s (an election is running). Leader
+        discovery goes through ``client`` (or one made here)."""
+        alive = [m for m in self.masters.values()
+                 if m.shard == shard_id and m.proc.poll() is None]
+        if not alive:
+            return None
+        current = await find_leader_async(
+            [m.addr for m in alive], tls=self.client_tls, client=client,
+            timeout=20.0 if leader else 3.0)
+        if leader:
+            victim = next((m for m in alive if m.addr == current), None)
+        else:
+            victim = next((m for m in alive if m.addr != current), None)
+        if victim is None:
+            return None
+        victim.kill()
+        return victim.name, victim.addr
+
+    def stop(self) -> None:
+        terminate_all(self.procs)
+
+    def __enter__(self) -> "TopologyCluster":
         return self.start()
 
     def __exit__(self, *exc) -> None:
