@@ -127,28 +127,37 @@ Then the live cluster:
   bit-exact over the wire, every block that lost a data shard rebuilt
   with at least one ``gf256_matmul`` launch. The process then holds no
   module of the JAX package or of JAX.
-- ``sharded``: the system's own deployment,
-  ``deploy/topologies/two-shard-ha.json`` (1 config server, shards
-  ``shard-0`` and ``shard-z`` of 3 masters each, 5 chunkservers in 3
-  racks) with TLS on every transport (``tpudfs_torch.cluster.
-  TopologyCluster``, the chunkservers' block cache off, every blockport
-  the native engine), driven through the port's client as the
-  reference's fault tiers build theirs (every master, the config server,
-  ``ClientTls``, no local short circuit, 64 MiB blocks): the ``dataset``
-  phase's 1 GiB token file written at 3x to ``/a/staging/`` and renamed
-  across the shards to ``/z/train/tokens.bin``; the ``restore`` phase's
-  rank shard saved by the port's ``CheckpointManager`` at ``/a/ckpt`` (3x
-  hot copy, RS(3,2) cold copy), step 1 healthy and step 2 published
-  through a SIGKILL of its shard's leader mid-save (``failover_s``: the
-  kill to the first metadata read the new leader answers); ``/`` listed
-  across the shards against each shard's own listing; step 2 restored
-  into ``cuda:0`` bit-exact; the token file read through the infeed (100
-  batches, two spawned workers with clients of their own) with the
-  owning shard's leader SIGKILLed after the first batch, every batch
-  checked; the two chunkservers holding the most data shards of the cold
-  copy SIGKILLed, the hot copy deleted, and step 2 restored again from
-  the cold copy, every block that lost a data shard rebuilt by one
-  ``gf256_matmul`` launch.
+- ``sharded``: the Helm chart's deployment (``deploy/helm/tpudfs``:
+  3 config servers in one Raft group, shards ``shard-a`` and ``shard-z``
+  of 3 masters each, one spare group of 3 masters, 5 chunkservers in 3
+  racks, the masters' split threshold at 100 requests a second) with TLS
+  on every transport (``tpudfs_torch.cluster.HelmCluster``, the
+  chunkservers' block cache off, every blockport the native engine),
+  driven through the port's client as the chart's users build it (the
+  config servers alone, ``ClientTls``, no local short circuit, 64 MiB
+  blocks): the ``dataset`` phase's 1 GiB token file written at 3x to
+  ``/a/staging/`` and renamed across the shards to
+  ``/z/train/tokens.bin``; the ``restore`` phase's rank shard saved by
+  the port's ``CheckpointManager`` at ``/a/ckpt`` (3x hot copy, RS(3,2)
+  cold copy), step 1 healthy and step 2 published through a SIGKILL of
+  its shard's leader mid-save (``failover_s``: the kill to the first
+  metadata read the new leader answers); ``/`` listed across the shards
+  against each shard's own listing; step 2 restored into ``cuda:0``
+  bit-exact; a second client sending 150 metadata calls a second on
+  ``/a/`` (the other ranks of the job polling) while a third restores
+  step 2 back to back, until the masters carve ``/a/`` off to the spare
+  group (``split_s``; the new shard must be 3 voters), then step 2
+  restored through the phase's first client, whose map predates the
+  split, which must follow a ``REDIRECT:``; the token file read through
+  the infeed (100 batches, two spawned workers with clients of their
+  own) with the owning shard's leader SIGKILLed after the first batch,
+  every batch checked; the config group's leader SIGKILLed
+  (``config_failover_s``: the kill to the first ``FetchShardMap`` a new
+  config leader answers), the two chunkservers holding the most data
+  shards of the cold copy SIGKILLed, the hot copy deleted, and step 2
+  restored again from the cold copy through a client built from the
+  config servers alone, every block that lost a data shard rebuilt by
+  one ``gf256_matmul`` launch.
 
 Then the bench:
 
@@ -1921,11 +1930,12 @@ def cluster_phase(device: torch.device, *, block_size: int = 64 * MiB,
 
 # ---------------------------------------------------------- phase: sharded
 
-#: The system's own deployment (``deploy/topologies/two-shard-ha.json``,
-#: the reference's fault tiers' topology and the Helm chart's layout): 1
-#: config server, 2 shards of 3-master Raft groups, 5 chunkservers in 3
-#: racks, TLS on every transport.
-SHARDED_TOPOLOGY = REPO / "deploy" / "topologies" / "two-shard-ha.json"
+#: The deployment the ``sharded`` phase runs: the Helm chart's
+#: (``deploy/helm/tpudfs``, as ``tpudfs_torch.cluster.HelmCluster`` starts
+#: it): 3 config servers, shards ``shard-a`` and ``shard-z`` of 3 masters,
+#: one spare group of 3 masters, 5 chunkservers in 3 racks, the masters'
+#: split threshold at 100 requests a second, TLS on every transport.
+SHARDED_TOPOLOGY = "helm-chart"
 #: The checkpoint's base and the dataset's paths: the staging copy and its
 #: home lie on either side of the bootstrap split at ``/m``, so the rename
 #: is a cross-shard two-phase commit.
@@ -1936,10 +1946,20 @@ SHARDED_TOKENS = "/z/train/tokens.bin"
 #: lands 300).
 SHARDED_BATCHES = 100
 #: The phase's budget on the card (seconds).
-SHARDED_BUDGET_S = 150.0
+SHARDED_BUDGET_S = 180.0
 #: Seconds a save of step 2 may take to publish once its shard's leader
 #: is killed, resumes included.
 SHARDED_RESUME_S = 120.0
+#: Metadata calls a second on the checkpoint's top-level prefix while the
+#: job's other 63 ranks restart and poll (``list_steps``, manifest reads,
+#: ``get_file_info`` of step 2's files). The masters fold each prefix's
+#: count into a moving average every 5 s with weight 0.7 on the new
+#: sample: a steady 150 reads 105 after one interval, over the chart's
+#: threshold of 100.
+SPLIT_TRAFFIC_OPS = 150.0
+#: Seconds the traffic may run before the split must have moved the
+#: prefix to a new shard.
+SPLIT_WAIT_S = 90.0
 
 
 async def _first_answer(client, addrs, path: str, t_kill: float) -> dict:
@@ -1973,6 +1993,22 @@ async def _until_done(what: str, op, attempt=None) -> str:
         outcome = f"resumed after {type(e).__name__}: {str(e)[:160]}"
     await retry_until(f"sharded: {what}", op, SHARDED_RESUME_S)
     return outcome
+
+
+async def _first_config_answer(rpc, addrs, t_kill: float) -> dict:
+    """Poll ``addrs`` (the surviving config servers) with ``FetchShardMap``
+    (a linearizable read: only a leader answers it) until one answers;
+    the seconds from ``t_kill`` and the address that answered."""
+    while True:
+        for addr in addrs:
+            try:
+                await rpc.call(addr, "ConfigService", "FetchShardMap", {},
+                               timeout=1.0)
+            except Exception:
+                continue
+            return {"config_failover_s": time.perf_counter() - t_kill,
+                    "new_config_leader": addr}
+        await asyncio.sleep(0.02)
 
 
 async def _save_through_failover(mgr, log, cluster, client, shard: str,
@@ -2102,17 +2138,185 @@ async def _sharded_degraded(mgr, client, cluster, reader, spec: dict,
             "seconds": seconds, "gbps": spec["size"] / seconds / 1e9}
 
 
+async def _prefix_traffic(client, paths: list[str], rate: float,
+                          stop: asyncio.Event) -> dict:
+    """Metadata traffic on the checkpoint's top-level prefix at ``rate``
+    calls a second until ``stop`` is set: in every 30 calls one
+    ``list_steps`` and one manifest read (its ``get_file_info`` and its
+    bytes), and ``get_file_info`` of ``paths`` (step 2's files) for the
+    rest, the calls the job's other ranks send while they restart and
+    poll. Each call is a task of its own (at most 64 at a time); a call
+    the cluster fails is counted, not raised: this is load, and the
+    restores beside it hold the bytes. Returns the calls sent, answered
+    and failed, the last error and the seconds."""
+    mgr = CheckpointManager(client, SHARDED_CKPT, num_shards=1, ec=CKPT_EC)
+    loop = asyncio.get_running_loop()
+    gate = asyncio.Semaphore(64)
+    out = {"sent": 0, "answered": 0, "failed": 0, "last_error": None}
+    tasks: set = set()
+
+    async def call(i: int) -> None:
+        async with gate:
+            try:
+                if i % 30 == 0:
+                    await mgr.list_steps()
+                elif i % 30 == 15:
+                    await mgr.read_manifest(2)
+                else:
+                    await client.get_file_info(paths[i % len(paths)])
+                out["answered"] += 1
+            except Exception as e:
+                out["failed"] += 1
+                out["last_error"] = f"{type(e).__name__}: {str(e)[:160]}"
+
+    t0 = loop.time()
+    while not stop.is_set():
+        wait = t0 + out["sent"] / rate - loop.time()
+        if wait > 0:
+            try:
+                await asyncio.wait_for(stop.wait(), wait)
+                break
+            except asyncio.TimeoutError:
+                pass
+        task = asyncio.ensure_future(call(out["sent"]))
+        tasks.add(task)
+        task.add_done_callback(tasks.discard)
+        out["sent"] += 1
+    seconds = loop.time() - t0
+    await asyncio.gather(*tasks)
+    return {**out, "seconds": seconds, "ops_per_s": out["sent"] / seconds}
+
+
+async def _checked_restore(mgr, tree: dict, device, block_size: int,
+                           size: int, what: str) -> dict:
+    """Step 2 restored into ``device`` through ``mgr``: bit-exact, and on a
+    card ``crc32c_blocks`` launched for every full block and
+    ``crc32c_chunks`` for the tail. Its seconds, GB/s and launches."""
+    before = launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    got = (await mgr.restore(2, device=device))[0]
+    sync(device)
+    seconds = time.perf_counter() - t0
+    _check_restored(got, tree, device)
+    del got
+    launched = _delta(launch_counts(), before)
+    full = size // block_size
+    if device.type == "cuda" and (launched["crc32c_blocks"] < full
+                                  or launched["crc32c_chunks"] < 1):
+        raise AssertionError(f"sharded: {what}: {full + 1} blocks "
+                             f"restored, {launched}")
+    return {"seconds": seconds, "gbps": size / seconds / 1e9,
+            "blocks": -(-size // block_size), "launches": launched}
+
+
+async def _split_under_restores(cluster, factory, client, mgr, spec: dict,
+                                tree: dict, device, block_size: int,
+                                rate: float) -> dict:
+    """The hot-prefix split under a restarting job: a second client sends
+    :func:`_prefix_traffic` on ``SHARDED_CKPT``'s top-level prefix while a
+    third restores step 2 into ``device`` back to back, until the config
+    group's map hands the prefix to a new shard (at most ``SPLIT_WAIT_S``
+    seconds). The new shard must be a 3-voter Raft group. Then step 2 is
+    restored once more through ``mgr`` on the phase's long-lived
+    ``client``, whose map predates the split: that restore must follow a
+    ``REDIRECT:`` (``client.redirects``) and refresh its map. Every
+    restore is bit-exact and launches its CRC kernels; each reports the
+    map's version at its start and its end."""
+    from tpudfs_torch.cluster import (find_leader_async, wait_moved,
+                                      wait_redirect)
+
+    prefix = SHARDED_CKPT + "/"
+    await cluster.refresh_shards()
+    source = cluster.shard_map.get_shard(prefix)
+    v_before = cluster.shard_map.version
+    traffic_client, restorer = factory(), factory()
+    watch = factory(max_retries=2)
+    stop = asyncio.Event()
+    paths = [spec["path"], spec["ec_path"],
+             ckptpaths.manifest_path(SHARDED_CKPT, 2)]
+
+    async def version() -> int:
+        if not await watch.refresh_shard_map():
+            raise AssertionError("sharded: no config server answered")
+        return watch.shard_map.version
+
+    try:
+        rmgr = CheckpointManager(restorer, SHARDED_CKPT, num_shards=1,
+                                 ec=CKPT_EC,
+                                 reader=HbmReader(restorer, [device]))
+        load = asyncio.ensure_future(
+            _prefix_traffic(traffic_client, paths, rate, stop))
+        split = asyncio.ensure_future(
+            wait_moved(watch, prefix, source, SPLIT_WAIT_S))
+        restores = []
+        try:
+            while not split.done():
+                v0 = await version()
+                row = await _checked_restore(rmgr, tree, device, block_size,
+                                             spec["size"], "under traffic")
+                restores.append({**row, "map_version": [v0, await version()]})
+            split_s = split.result()
+        finally:
+            stop.set()
+            traffic = await load
+            split.cancel()
+        await cluster.refresh_shards(watch)
+        target = cluster.shard_map.get_shard(prefix)
+        peers = cluster.shards[target]
+        leader = await find_leader_async(peers, client=watch)
+        voters = [] if leader is None else \
+            (await watch.raft_state(leader))["config"]["voters"]
+        if sorted(voters) != sorted(peers) or len(voters) != 3:
+            raise AssertionError(f"sharded: the split's shard {target} has "
+                                 f"voters {voters}, peers {peers}")
+        if sorted(peers) not in [sorted(g) for g in cluster.spare_groups]:
+            raise AssertionError(f"sharded: {target} is not a spare group: "
+                                 f"{peers}")
+        # Only once the source has handed the range over does a client on
+        # the old map meet a redirect.
+        handoff_s = await wait_redirect(watch, cluster.shards[source],
+                                        paths[-1], target)
+        redirects, refreshes = client.redirects, client.map_refreshes
+        v0 = client.shard_map.version
+        stale = await _checked_restore(mgr, tree, device, block_size,
+                                       spec["size"], "through the old map")
+        stale.update(
+            map_version=[v0, client.shard_map.version],
+            redirects=client.redirects - redirects,
+            map_refreshes=client.map_refreshes - refreshes)
+        if not stale["redirects"] or not stale["map_refreshes"] or \
+                client.shard_map.get_shard(prefix) != target:
+            raise AssertionError(f"sharded: the restore through the old map "
+                                 f"followed no redirect: {stale}")
+    finally:
+        for c in (traffic_client, restorer, watch):
+            await c.close()
+    v_after = cluster.shard_map.version
+    return {"prefix": prefix, "from": source, "to": target, "peers": peers,
+            "voters": sorted(voters), "split_s": split_s,
+            "handoff_s": handoff_s,
+            "map_version": [v_before, v_after], "traffic": traffic,
+            "restores": restores,
+            "across_split": sum(r["map_version"][0] != r["map_version"][1]
+                                for r in restores),
+            "stale_map_restore": stale}
+
+
 def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
                   file_bytes: int = 1 << 30, block_size: int = 64 * MiB,
                   batches: int = SHARDED_BATCHES, seed: int = 0,
-                  num_workers: int = 2, workdir: Path | None = None) -> dict:
-    """The ``sharded`` phase: the system's own deployment
-    (``TopologyCluster`` on ``SHARDED_TOPOLOGY`` with TLS, the
-    chunkservers' block cache off; every chunkserver's blockport must be
-    the native engine), driven through the port's ``Client`` as the
-    reference's fault tiers build theirs (every master, the config server,
-    ``ClientTls``, ``local_reads=False``: every byte crosses an encrypted
-    blockport), ``block_size`` blocks:
+                  num_workers: int = 2, split_rps: float | None = None,
+                  split_cooldown_s: float | None = None,
+                  traffic_ops: float = SPLIT_TRAFFIC_OPS,
+                  workdir: Path | None = None) -> dict:
+    """The ``sharded`` phase: the Helm chart's deployment (``HelmCluster``:
+    3 config servers, ``shard-a`` and ``shard-z`` of 3 masters, a spare
+    group of 3, 5 chunkservers, TLS, the chunkservers' block cache off;
+    every chunkserver's blockport must be the native engine), driven
+    through the port's ``Client`` as the chart's users build it (the three
+    config servers alone, ``ClientTls``, ``local_reads=False``: every
+    byte crosses an encrypted blockport), ``block_size`` blocks:
 
     1. the ``dataset`` phase's token file (``file_bytes``) written at 3x to
        ``SHARDED_STAGING``, then renamed across the shards to
@@ -2125,16 +2329,25 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
     3. ``/`` listed across the shards, against each shard's own listing;
     4. step 2 restored into ``device``, every block verified on the
        device as it lands, bit-exact;
-    5. the token file read through the infeed, the owning shard's leader
+    5. the hot-prefix split under restores (:func:`_split_under_restores`:
+       ``traffic_ops`` calls a second on ``/a/``, step 2 restored back to
+       back until the map moves ``/a/`` to the spare group, then once
+       through the long-lived client's old map, which must redirect);
+    6. the token file read through the infeed, the owning shard's leader
        SIGKILLed after the first batch (:func:`_sharded_infeed`);
-    6. the degraded restore (:func:`_sharded_degraded`).
+    7. the config group's leader SIGKILLed, and the degraded restore
+       (:func:`_sharded_degraded`) through a client built from the config
+       servers alone as the group elects (``config_failover_s``: the kill
+       to the first ``FetchShardMap`` a new config leader answers).
 
-    A write or save the cluster fails (an election, by a kill or by the
-    load) is resumed until it lands (:func:`_until_done`); the output
-    says which were. Raises on any mismatch, or when a module of the JAX package or of JAX
-    is loaded."""
+    ``split_rps`` and ``split_cooldown_s`` set the masters'
+    ``--split-threshold-rps`` and ``--split-cooldown-secs`` (the chart's
+    100 and the masters' 30 s when None). A write or save the cluster
+    fails (an election, by a kill or by the load) is resumed until it
+    lands (:func:`_until_done`); the output says which were. Raises on any
+    mismatch, or when a module of the JAX package or of JAX is loaded."""
     from tpudfs_torch.client.client import Client
-    from tpudfs_torch.cluster import TopologyCluster
+    from tpudfs_torch.cluster import HelmCluster
 
     root = Path(workdir) if workdir is not None else REPO / "build"
     root.mkdir(parents=True, exist_ok=True)
@@ -2143,14 +2356,15 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
         0, GPT2_VOCAB, file_bytes // 2, dtype=np.uint16)
     t_phase = time.perf_counter()
     try:
-        with TopologyCluster(tmp, SHARDED_TOPOLOGY, tls=True,
-                             cache_blocks=0) as cluster:
+        with HelmCluster(tmp, tls=True, cache_blocks=0,
+                         split_threshold_rps=split_rps,
+                         split_cooldown_s=split_cooldown_s) as cluster:
             # The reference's checkpoint tiers' retry count (max_retries=8)
             # rides out an election the load alone can cause.
             factory = functools.partial(
-                Client, cluster.all_masters,
-                config_addrs=[cluster.config_addr], tls=cluster.client_tls,
-                block_size=block_size, max_retries=8, local_reads=False)
+                Client, config_addrs=list(cluster.config_addrs),
+                tls=cluster.client_tls, block_size=block_size,
+                max_retries=8, local_reads=False)
 
             async def run() -> dict:
                 client = factory(etag_mode="crc64")
@@ -2232,27 +2446,12 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
                     out["listing"] = {"files": len(listed),
                                       "per_shard": {k: len(v)
                                                     for k, v in own.items()}}
-
-                    before = launch_counts()
-                    sync(device)
-                    t0 = time.perf_counter()
-                    got = (await mgr.restore(2, device=device))[0]
-                    sync(device)
-                    seconds = time.perf_counter() - t0
-                    _check_restored(got, trees[2], device)
-                    del got
-                    launched = _delta(launch_counts(), before)
-                    full = spec["size"] // block_size
-                    if device.type == "cuda" and (
-                            launched["crc32c_blocks"] < full
-                            or launched["crc32c_chunks"] < 1):
-                        raise AssertionError(f"sharded: {full + 1} blocks "
-                                             f"restored, {launched}")
-                    out["restore"] = {
-                        "seconds": seconds,
-                        "gbps": spec["size"] / seconds / 1e9,
-                        "blocks": -(-spec["size"] // block_size),
-                        "launches": launched}
+                    out["restore"] = await _checked_restore(
+                        mgr, trees[2], device, block_size, spec["size"],
+                        "the restore")
+                    out["split"] = await _split_under_restores(
+                        cluster, factory, client, mgr, spec, trees[2],
+                        device, block_size, traffic_ops)
                     out["tokens_shard"] = owner(SHARDED_TOKENS)
                     out["raft"] = await _raft_terms(cluster, client)
                     return out
@@ -2260,15 +2459,32 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
                     await client.close()
 
             async def degraded() -> dict:
+                killed = await cluster.kill_config(leader=True)
+                t_kill = time.perf_counter()
+                if killed is None:
+                    raise AssertionError("sharded: no config leader to kill")
+                # A restarted job's client: the config servers alone, built
+                # while the config group elects.
                 client = factory()
                 try:
+                    failover = asyncio.ensure_future(_first_config_answer(
+                        client.rpc, [a for a in cluster.config_addrs
+                                     if a != killed[1]], t_kill))
                     reader = HbmReader(client, [device])
                     mgr = CheckpointManager(client, SHARDED_CKPT,
                                             num_shards=1, ec=CKPT_EC,
                                             reader=reader)
                     spec = (await mgr.read_manifest(2))["shards"][0]
-                    return await _sharded_degraded(
+                    first_read_s = time.perf_counter() - t_kill
+                    config = {"killed": {"name": killed[0],
+                                         "addr": killed[1], "leader": True,
+                                         "role": "config server"},
+                              **await failover,
+                              "first_read_s": first_read_s,
+                              "client_map_refreshes": client.map_refreshes}
+                    out = await _sharded_degraded(
                         mgr, client, cluster, reader, spec, trees[2], device)
+                    return {**out, "config": config}
                 finally:
                     await client.close()
 
@@ -2282,6 +2498,8 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
             out["degraded"] = asyncio.run(degraded())
             start_s = cluster.start_s
             shards = cluster.shards
+            spare_groups = cluster.spare_groups
+            departures = cluster.departures
     except BaseException:
         # The servers' logs outlive a failed run, for the post-mortem.
         kept = root / "sharded_logs"
@@ -2294,8 +2512,10 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
     foreign = _foreign_modules()
     if foreign:
         raise AssertionError(f"sharded: loaded {foreign}")
+    config = out["degraded"].pop("config")
     kills = [out["save"]["failover"]["killed"],
-             out["dataset_read"]["killed"], *out["degraded"]["killed"]]
+             out["dataset_read"]["killed"], config["killed"],
+             *out["degraded"]["killed"]]
     del trees
     reduced = [] if params == CKPT_PARAMS else [
         f"params_per_rank {params} of {CKPT_PARAMS}"]
@@ -2303,23 +2523,31 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
         reduced.append(f"dataset {file_bytes} of {1 << 30} bytes")
     if block_size != 64 * MiB:
         reduced.append(f"block_size {block_size} of {64 * MiB}")
+    if traffic_ops != SPLIT_TRAFFIC_OPS:
+        reduced.append(f"prefix traffic {traffic_ops} of "
+                       f"{SPLIT_TRAFFIC_OPS} calls a second")
     seconds = time.perf_counter() - t_phase
     return {"phase": "sharded", "device": str(device), "seed": seed,
-            "topology": SHARDED_TOPOLOGY.stem, "shards": shards,
-            "config_servers": 1, "chunkservers": len(out["engines"]),
+            "topology": SHARDED_TOPOLOGY, "shards": shards,
+            "spare_groups": spare_groups, "config_servers": 3,
+            "chunkservers": len(out["engines"]),
             "tls": True, "engine": "native", "block_size": block_size,
             "chunkserver_cache_blocks": 0, "start_s": start_s, **out,
+            "config": config,
             "save_gbps": out["save"]["save_gbps"],
             "failover_s": out["save"]["failover"]["failover_s"],
             "restore_gbps": out["restore"]["gbps"],
+            "split_s": out["split"]["split_s"],
+            "split_restore_gbps": [r["gbps"] for r in out["split"]["restores"]]
+            + [out["split"]["stale_map_restore"]["gbps"]],
+            "config_failover_s": config["config_failover_s"],
             "degraded_gbps": out["degraded"]["gbps"],
             "records_per_s": out["dataset_read"]["records_per_s"],
             "kills": kills, "seconds": seconds,
             "budget_s": SHARDED_BUDGET_S, "reduced": reduced,
             "cut": None if batches == SHARDED_BATCHES else
             f"dataset read cut to {batches} of {SHARDED_BATCHES} batches",
-            "departures": ["1 config server, not the Helm chart's 3",
-                           "no S3 gateway"],
+            "departures": departures,
             "foreign_modules": foreign}
 
 

@@ -401,3 +401,44 @@ def test_process_cluster_without_tpudfs_or_jax(tmp_path):
     for key in ("/p/rep@False", "/p/ec@False", "/p/rep@True", "/p/ec@True"):
         assert r[key] is True, key
     assert r["local_blocks"] > 0
+
+
+@pytest.mark.parametrize("read", ["get_file", "read_file_range"])
+async def test_a_block_list_short_of_the_size_is_refused(read):
+    """A complete file whose block list holds fewer bytes than its size
+    (what a master that lost a block's metadata answers: a rare leader
+    failover of ``test_leader_failover_follows_hints`` does it with either
+    client, ``tests/torch_failover_repeat.py``). The reference returns the
+    short read as the file; the port raises ``DfsError`` naming the bytes
+    its blocks hold."""
+    meta = {"path": "/short", "size": 100_000, "complete": True,
+            "blocks": [{"block_id": "blk-1", "size": BLOCK,
+                        "locations": ["127.0.0.1:1"], "ec_data_shards": 0,
+                        "ec_parity_shards": 0, "checksum_crc32c": 0}]}
+    data = _rand(BLOCK, 11)
+    got = {}
+    for name, cls in (("port", Client), ("ref", RefClient)):
+        client = cls(["127.0.0.1:1"], block_size=BLOCK)
+
+        async def info(path, meta=meta):
+            return meta
+
+        async def block(b, off=0, length=0, *a, **kw):
+            return data[off: off + (length or BLOCK)]
+
+        client.get_file_info = info
+        client._read_block = block
+        client._read_block_range = block
+        try:
+            if read == "get_file":
+                got[name] = await client.get_file("/short")
+            else:
+                got[name] = await client.read_file_range("/short", 0,
+                                                         100_000)
+        except Exception as e:
+            got[name] = e
+        finally:
+            await client.close()
+    assert got["ref"] == data
+    assert type(got["port"]).__name__ == "DfsError"
+    assert "hold 65536 of its 100000 bytes" in str(got["port"])

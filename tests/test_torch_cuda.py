@@ -998,9 +998,11 @@ def test_ckpt_chaos_on_card(cuda_device, tmp_path):
 
 
 #: The roulette axis's seed on the sharded deployment: its plan SIGKILLs
-#: both shards' leaders (shard-z's owns the checkpoint) and one
-#: chunkserver.
-SHARDED_PLAN_SEED = 10
+#: one chunkserver, partitions shard-z's leader (shard-z owns the
+#: checkpoint) from the saving client for 3.5 s, SIGKILLs a follower of
+#: shard-0 and then shard-z's leader: every kind of fault the roulette
+#: draws.
+SHARDED_PLAN_SEED = 21
 
 
 def _sharded_chaos_parts(device, root, kib: int,
@@ -1013,8 +1015,9 @@ def _sharded_chaos_parts(device, root, kib: int,
     short circuit), restores through an ``HbmReader`` on ``device``:
     kill-mid-checkpoint at ``/a/chaos-ckpt`` (t10, hot-only), then the
     roulette's checkpoint axis at ``/a/roulette-ckpt`` (RS(2,1)) through
-    ``kill_plan(..., shards=)``'s seeded chunkserver and master kills,
-    with its settle-and-verify. Returns each stage's seconds, kernel
+    ``kill_plan(..., shards=)``'s seeded chunkserver and master kills and
+    shard-leader partitions (``tpudfs_torch.netem.FaultProxy`` between
+    the saving client and the leader), with its settle-and-verify. Returns each stage's seconds, kernel
     launches and result."""
     import random
     import time
@@ -1022,8 +1025,9 @@ def _sharded_chaos_parts(device, root, kib: int,
 
     from tpudfs_torch import ckpt_chaos as cc
     from tpudfs_torch.client.client import Client
-    from tpudfs_torch.cluster import TopologyCluster
+    from tpudfs_torch.cluster import TopologyCluster, find_leader_async
     from tpudfs_torch.graft_entry import launch_counts
+    from tpudfs_torch.netem import FaultProxy
 
     topology = Path(__file__).resolve().parents[1] / "deploy" \
         / "topologies" / "two-shard-ha.json"
@@ -1047,24 +1051,57 @@ def _sharded_chaos_parts(device, root, kib: int,
         by_name = {cs.name: cs for cs in cluster.chunkservers}
         rng = random.Random(seed)
         plan = cc.kill_plan(rng, by_name, shards=cluster.shards)
-        mgr = cc.roulette_manager(client, reader=reader)
+        # As the roulette does: a proxy in front of each partitioned
+        # shard's leader as it stands at the start, which the saving
+        # client reaches through a host alias (the reference aliases its
+        # workload client; here it is the client that saves and
+        # restores).
+        proxies, aliases = {}, {}
+        for sid in sorted({v.shard for _, v in plan
+                           if isinstance(v, cc.Partition)}):
+            leader = await find_leader_async(cluster.shards[sid],
+                                             client=client)
+            host, port = leader.rsplit(":", 1)
+            proxies[sid] = FaultProxy(host, int(port))
+            aliases[leader] = await proxies[sid].start()
+        saver = Client(cluster.all_masters,
+                       config_addrs=[cluster.config_addr],
+                       tls=cluster.client_tls, block_size=256 * 1024,
+                       rpc_timeout=3.0, max_retries=8, local_reads=False,
+                       host_aliases=aliases)
+        mgr = cc.roulette_manager(saver,
+                                  reader=HbmReader(saver, [device]))
         kills = []
+
+        async def partition(shard, duration):
+            proxy = proxies[shard]
+            proxy.partition()
+            await asyncio.sleep(duration)
+            proxy.heal()
+            return {"via": proxy.address,
+                    "upstream": f"{proxy.upstream_host}:"
+                                f"{proxy.upstream_port}"}
 
         async def faults():
             kills.extend(await cc.run_kill_plan(
                 plan, lambda name: by_name[name].kill(),
                 lambda shard, leader: cluster.kill_master(
-                    shard, leader, client=client)))
+                    shard, leader, client=client), partition))
 
-        attempted, published = await cc.save_through_faults(
-            mgr, steps=4, rng=rng, kib=kib, faults=faults)
-        out = await cc.settle_and_verify(mgr, attempted, published,
-                                         kib=kib, device=device)
+        try:
+            attempted, published = await cc.save_through_faults(
+                mgr, steps=4, rng=rng, kib=kib, faults=faults)
+            out = await cc.settle_and_verify(mgr, attempted, published,
+                                             kib=kib, device=device)
+            ckpt_shard = saver.shard_map.get_shard(mgr.base + "/")
+        finally:
+            await saver.close()
+            for proxy in proxies.values():
+                await proxy.stop()
         return {"plan": [[t, v if isinstance(v, str) else v._asdict()]
                          for t, v in plan],
                 "kills": kills, "attempted": attempted,
-                "ckpt_shard": client.shard_map.get_shard(mgr.base + "/"),
-                **out}
+                "ckpt_shard": ckpt_shard, **out}
 
     report = {}
     for name, stage in (("t10", t10), ("roulette", roulette)):
@@ -1099,7 +1136,8 @@ def test_sharded_ckpt_chaos_on_card(cuda_device, tmp_path):
     deployment, every restore into ``cuda:0`` bit-exact (each stage checks
     it), at 4 MiB trees (about 3.4 MB a shard, 256 KiB blocks): t10 tears
     and resumes a save; the roulette axis's plan SIGKILLs at least one
-    master (and the checkpoint shard's leader), no torn step is listed,
+    master (and the checkpoint shard's leader) and partitions at least
+    one shard leader from the saving client, no torn step is listed,
     every acked step is listed. Prints one ``SHARDED_CHAOS_ON_CARD`` JSON
     line."""
     import json
@@ -1113,8 +1151,11 @@ def test_sharded_ckpt_chaos_on_card(cuda_device, tmp_path):
     assert t10["mid_save"] and t10["interrupted"], t10
     assert t10["resume_puts"][0] == 0 and t10["resume_puts"][1] >= 1, t10
     roulette = report["roulette"]["result"]
-    masters = [k for k in roulette["kills"] if "shard" in k]
+    masters = [k for k in roulette["kills"] if "leader" in k]
     assert masters and all(k["killed"] for k in masters), roulette
+    partitions = [k for k in roulette["kills"] if "partitioned" in k]
+    assert partitions and all(k["partitioned"] for k in partitions), \
+        roulette
     assert any(k["shard"] == roulette["ckpt_shard"] and k["leader"]
                for k in masters), roulette
     assert roulette["acked"], roulette

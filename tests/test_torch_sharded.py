@@ -10,7 +10,7 @@ the destination exists; the admin calls answer as the reference's do (the
 Raft membership calls on a 3-master ``MiniCluster``); both packages'
 ``CheckpointManager`` read each other's steps bit-exact on either shard.
 Then the fault tier's plan (``kill_plan(..., shards=)``: the roulette's
-rules; without ``shards`` the plans of before) and ``find_leader_async``
+rules, partitions included; without ``shards`` the plans of before) and ``find_leader_async``
 during an election. Byte functions: no tolerance."""
 
 from __future__ import annotations
@@ -295,9 +295,10 @@ SHARDS = {"shard-0": ["m0", "m1", "m2"], "shard-z": ["m3", "m4", "m5"],
 
 
 def test_kill_plan_with_shards_follows_the_roulettes_rules():
-    """Two to four kills a plan, at most two chunkservers, at most one
-    master a group of 3 or more (none of a 1-master shard), offsets in
-    order from ``first``; leaders about 70% of the master kills; seeded."""
+    """Two to four faults a plan, at most two chunkservers, at most one
+    master a group of 3 or more (none of a 1-master shard), partitions of
+    any shard for 1.5 to 4 s, offsets in order from ``first``; leaders
+    about 70% of the master kills; seeded."""
     names = [f"cs{i}" for i in range(5)]
     plans = [cc.kill_plan(random.Random(s), names, shards=SHARDS)
              for s in range(200)]
@@ -309,12 +310,17 @@ def test_kill_plan_with_shards_follows_the_roulettes_rules():
         assert 2 <= len(p) <= 4
         cs = [v for _, v in p if isinstance(v, str)]
         ms = [v for _, v in p if isinstance(v, cc.MasterKill)]
+        parts = [v for _, v in p if isinstance(v, cc.Partition)]
+        assert len(cs) + len(ms) + len(parts) == len(p)
         assert len(cs) == len(set(cs)) <= 2 and set(cs) <= set(names)
         assert len(ms) == len({m.shard for m in ms})
         assert {m.shard for m in ms} <= {"shard-0", "shard-z"}
+        assert all(v.shard in SHARDS and 1.5 <= v.duration <= 4.0
+                   for v in parts)
         masters += len(ms)
         leaders += sum(m.leader for m in ms)
     assert any(isinstance(v, cc.MasterKill) for p in plans for _, v in p)
+    assert any(isinstance(v, cc.Partition) for p in plans for _, v in p)
     assert 0.6 < leaders / masters < 0.8
 
 
@@ -374,42 +380,64 @@ async def test_find_leader_async_is_none_during_an_election(tmp_path):
 
 def test_sharded_phase_small_on_cpu(tmp_path):
     """``chip_smoke.sharded_phase`` at a small size in an interpreter that
-    refuses ``jax``: the two-shard-ha deployment under TLS (1 config
-    server, 2 x 3 masters, 5 chunkservers, each blockport the native
-    engine), the cross-shard rename, step 2 published through a SIGKILLed
-    leader, the listing across shards, both restores bit-exact (every
-    block that lost a data shard rebuilt), every infeed batch exact
-    through a second SIGKILLed leader; no ``tpudfs`` or ``jax`` module."""
+    refuses ``jax``: the Helm chart's deployment under TLS (3 config
+    servers, ``shard-a`` and ``shard-z`` of 3 masters, a spare group of 3,
+    5 chunkservers, each blockport the native engine), the cross-shard
+    rename, step 2 published through a SIGKILLed leader, the listing
+    across shards, the restores bit-exact, ``/a/`` split to the spare
+    group under 20 metadata calls a second (the masters' split threshold
+    lowered to 5 a second and their cooldown to 2 s, so that the split
+    comes within seconds; the card runs the chart's 100 and 30 s) with a
+    restore through the long-lived client's old map following a
+    redirect, every infeed batch exact through a second SIGKILLed leader,
+    the config leader SIGKILLed before the degraded restore (every block
+    that lost a data shard rebuilt); no ``tpudfs`` or ``jax`` module."""
     r = run_without_jax(f"""
         from pathlib import Path
         import torch
         import chip_smoke
         result = chip_smoke.sharded_phase(
             torch.device("cpu"), params=40_000, file_bytes=1 << 20,
-            block_size=65536, batches=10, num_workers=0,
+            block_size=65536, batches=10, num_workers=0, split_rps=5,
+            split_cooldown_s=2, traffic_ops=20,
             workdir=Path({str(tmp_path)!r}))
     """, timeout=150)
     assert r["loaded_jax"] == [] and r["foreign_modules"] == []
-    assert r["topology"] == "two-shard-ha" and r["tls"]
+    assert r["topology"] == "helm-chart" and r["tls"]
+    assert r["config_servers"] == 3 and len(r["spare_groups"]) == 1
+    split = r["split"]
+    assert split["from"] == "shard-z" and split["to"].startswith(
+        "shard-z-split-")
     assert {k: len(v) for k, v in r["shards"].items()} \
-        == {"shard-0": 3, "shard-z": 3}
+        == {"shard-a": 3, "shard-z": 3, split["to"]: 3}
+    assert sorted(split["voters"]) == sorted(r["spare_groups"][0]) \
+        == sorted(r["shards"][split["to"]])
     assert list(r["engines"].values()) == [True] * 5
     assert r["dataset"]["from"][1] != r["dataset"]["to"][1]
     save = r["save"]
     assert save["shard"] == "shard-z" and len(r["save_gbps"]) == 2
     assert save["failover"]["killed"]["leader"]
     assert save["failover"]["new_leader"] in r["shards"]["shard-z"]
-    assert r["failover_s"] > 0
-    assert r["listing"]["per_shard"]["shard-0"] >= 1
+    assert r["failover_s"] > 0 and r["split_s"] > 0
+    assert split["restores"] and split["map_version"][1] \
+        > split["map_version"][0]
+    stale = split["stale_map_restore"]
+    assert stale["redirects"] >= 1 and stale["map_refreshes"] >= 1
+    assert stale["map_version"][0] < stale["map_version"][1]
+    assert r["listing"]["per_shard"]["shard-a"] >= 1
     assert r["restore"]["blocks"] == r["degraded"]["blocks"]
     d = r["degraded"]
     assert d["blocks_lost_data"] >= 1
     assert d["rebuilt_blocks"] == d["blocks_lost_data"]
     assert d["gf256_launches"] == 0  # the plain twin on the CPU
+    assert r["config"]["config_failover_s"] > 0
+    assert r["config"]["new_config_leader"] != r["config"]["killed"]["addr"]
     assert r["dataset_read"]["exact"]
-    assert r["dataset_read"]["killed"]["shard"] == "shard-0"
-    assert [k["leader"] for k in r["kills"]] == [True, True, False, False]
-    assert r["cut"] is not None and len(r["reduced"]) == 3
+    assert r["dataset_read"]["killed"]["shard"] == "shard-a"
+    assert [k["leader"] for k in r["kills"]] == [True, True, True, False,
+                                                  False]
+    assert r["cut"] is not None and len(r["reduced"]) == 4
+    assert any("split threshold 5" in d for d in r["departures"])
     assert list(tmp_path.iterdir()) == []  # the cluster's dirs are removed
 
 

@@ -261,6 +261,7 @@ import tpudfs_torch.gpu.checkpoint, tpudfs_torch.gpu.record_source
 import tpudfs_torch.gpu.wds, tpudfs_torch.gpu.infeed
 import tpudfs_torch.common.resilience, tpudfs_torch.common.sharding
 import tpudfs_torch.client.local, tpudfs_torch.bench, tpudfs_torch.cluster
+import tpudfs_torch.netem
 import chip_smoke
 before = sorted(m for m in sys.modules if m.split(".")[0] == "grpc")
 import tpudfs_torch.client.client
@@ -397,7 +398,8 @@ def test_port_sources_name_no_jax_or_tpudfs_import():
                  "sweep_lab.py", "common/layout.py", "ckpt_chaos.py",
                  "client/client.py", "cluster.py", "common/rpc.py",
                  "common/resilience.py", "common/sharding.py",
-                 "common/blocknet.py", "common/writestream.py", "pki.py"):
+                 "common/blocknet.py", "common/writestream.py", "pki.py",
+                 "netem.py"):
         assert REPO / "tpudfs_torch" / name in files, name
     for f in files:
         for name in _imports(f):

@@ -11,8 +11,10 @@ of the checkpoint stages of the JAX package's three fault tiers:
   manager, ``checkpointer``, ``settle`` and the post-fault check):
   :func:`roulette_manager`, :func:`save_through_faults`,
   :func:`settle_and_verify`, with :func:`kill_plan` / :func:`run_kill_plan`
-  for a seeded plan of chunkserver kills, and of master kills on a
-  sharded deployment (``shards=``, drawn as ``make_plan`` draws them);
+  for a seeded plan of chunkserver kills, and of master kills and
+  shard-leader partitions on a sharded deployment (``shards=``, drawn as
+  ``make_plan`` draws them; the partitions through
+  :mod:`tpudfs_torch.netem`);
 - and one stage of its own, :func:`rebuild_after_kills`: an EC-only
   checkpoint whose data-shard holders die, restored through the GF(2^8)
   rebuild.
@@ -466,19 +468,33 @@ class MasterKill(NamedTuple):
     leader: bool
 
 
+class Partition(NamedTuple):
+    """A plan's partition: ``shard``'s leader (as it stands when the plan
+    starts) cut off from the client that routes to it through a proxy,
+    for ``duration`` seconds, then healed."""
+
+    shard: str
+    duration: float
+
+
 def kill_plan(rng: random.Random, names, *, shards: dict | None = None,
               first: tuple = (1.0, 3.0), gap: tuple = (1.0, 3.0)) -> list:
-    """A seeded, survivable plan of kills, ``[(offset_s, victim), ...]``,
+    """A seeded, survivable plan of faults, ``[(offset_s, victim), ...]``,
     with offsets from the plan's start drawn as the roulette draws them
     (``first``, then ``gap`` apart).
 
     Without ``shards``: one or two chunkserver kills of ``names`` (RS(2,1)
     still places on three of five). With ``shards`` (``{shard_id:
-    [master addresses]}``): two to four kills drawn as the roulette's
-    ``make_plan`` draws them, less its partitions: a chunkserver kill
-    while fewer than two were drawn, or a :class:`MasterKill` of a shard
-    whose group has 3 or more members and none drawn yet (quorum holds),
-    its leader with probability 0.7."""
+    [master addresses]}``): the roulette's ``make_plan``
+    (``scripts/chaos_roulette.py``), draw for draw: two to four faults,
+    each a :class:`Partition` of a shard (``uniform(1.5, 4.0)`` seconds), a
+    chunkserver kill while fewer than two were drawn, or a
+    :class:`MasterKill` of a shard not drawn yet, its leader with
+    probability 0.7, the shard drawn in ``shards``' own order. One
+    difference keeps quorum: a shard whose group has fewer than 3 masters
+    is never a kill victim here (the reference's plan may kill it); with
+    every group at 3 or more, the same seed and endpoints give the
+    reference's plan."""
     names = sorted(names)
     plan, t = [], rng.uniform(*first)
     if shards is None:
@@ -488,31 +504,40 @@ def kill_plan(rng: random.Random, names, *, shards: dict | None = None,
             plan.append((t, victim))
             t += rng.uniform(*gap)
         return plan
-    groups = sorted(s for s, peers in shards.items() if len(peers) >= 3)
+    killed: set[str] = set()
     cs_kills = 0
     for _ in range(rng.randint(2, 4)):
-        kinds = (["cs"] if cs_kills < 2 and names else []) \
+        groups = [s for s in shards
+                  if s not in killed and len(shards[s]) >= 3]
+        kinds = ["partition"] + (["cs"] if cs_kills < 2 and names else []) \
             + (["master"] if groups else [])
-        if not kinds:
-            break
-        if rng.choice(kinds) == "cs":
+        kind = rng.choice(kinds)
+        if kind == "cs":
             victim = rng.choice(names)
             names.remove(victim)
             cs_kills += 1
-        else:
+        elif kind == "master":
             shard = rng.choice(groups)
-            groups.remove(shard)
+            killed.add(shard)
             victim = MasterKill(shard, rng.random() < 0.7)
+        else:
+            victim = Partition(rng.choice(sorted(shards)),
+                               rng.uniform(1.5, 4.0))
         plan.append((t, victim))
         t += rng.uniform(*gap)
     return plan
 
 
-async def run_kill_plan(plan, kill, kill_master=None) -> list[dict]:
-    """Inject ``plan``'s kills at their offsets: ``kill(victim)`` for a
+async def run_kill_plan(plan, kill, kill_master=None,
+                        partition=None) -> list[dict]:
+    """Inject ``plan``'s faults at their offsets: ``kill(victim)`` for a
     chunkserver, ``kill_master(shard, leader)`` for a :class:`MasterKill`
     (it returns what it killed, or None when it skipped: no leader while
-    an election runs). Returns each kill's offset, victim and outcome."""
+    an election runs), ``partition(shard, duration)`` for a
+    :class:`Partition` (it partitions, heals after ``duration`` and
+    returns what it cut off, or None when it skipped; the plan waits for
+    it, as the roulette's injector waits out each partition). Returns
+    each fault's offset, victim and outcome."""
     loop = asyncio.get_running_loop()
     t0 = loop.time()
     done = []
@@ -529,6 +554,15 @@ async def run_kill_plan(plan, kill, kill_master=None) -> list[dict]:
                          "leader": victim.leader, "killed": out})
             logger.info("+%.1fs master of %s (leader=%s): %s", offset,
                         victim.shard, victim.leader, out or "skipped")
+        elif isinstance(victim, Partition):
+            if partition is None:
+                raise ValueError("the plan holds a partition and no "
+                                 "partition was given")
+            out = await _call(partition, victim.shard, victim.duration)
+            done.append({"offset": offset, "shard": victim.shard,
+                         "duration": victim.duration, "partitioned": out})
+            logger.info("+%.1fs partition of %s for %.1fs: %s", offset,
+                        victim.shard, victim.duration, out or "skipped")
         else:
             await _call(kill, victim)
             done.append({"offset": offset, "killed": victim})

@@ -36,9 +36,15 @@ and the cluster-admin calls (``safe_mode_status``, ``set_safe_mode``,
 send the reference's requests and return its answers.
 
 A sharded deployment: give ``config_addrs`` and any masters; the client
-fetches the shard map from a config server on its first ``REDIRECT:`` or
-listing, routes each path to its shard's Raft group and fans listings out
-over every shard. ``tls=ClientTls(...)`` puts every channel, gRPC and
+fetches the shard map from the config group's leader on its first
+``REDIRECT:`` or listing, routes each path to its shard's Raft group and
+fans listings out over every shard. Unlike the reference's, a map fetch
+follows a config follower's ``Not Leader|<hint>``, starts at the config
+server that last answered, and keeps asking through a config-group
+election (``SHARD_MAP_RETRY_S``): a client given only ``config_addrs``
+works while the group elects, and a ``REDIRECT:`` to a shard the client
+has not seen finds its peers. ``redirects`` and ``map_refreshes`` count
+both. ``tls=ClientTls(...)`` puts every channel, gRPC and
 blockport, under TLS.
 
 Nothing here opens a socket before its first call, and every channel is
@@ -86,6 +92,11 @@ BACKOFF_CAP = 5.0
 #: freshly killed leader, short enough that a node that failed DURING an
 #: election is retried once it may have become the new leader.
 REFUSED_TTL = 3.0
+
+#: Seconds a shard-map fetch keeps asking the config group while no
+#: config server answers it (an election takes one to three election
+#: timeouts), clamped to the op's deadline budget.
+SHARD_MAP_RETRY_S = 15.0
 
 MASTER = "MasterService"
 CS = "ChunkServerService"
@@ -136,6 +147,14 @@ def _budgeted(fn):
     wrapped.__doc__ = fn.__doc__
     wrapped.__wrapped__ = fn
     return wrapped
+
+
+def _uncovered(meta: dict, covered: int) -> DfsError:
+    """A complete file whose block list holds fewer bytes than its size: a
+    master that lost a block's metadata. The reference returns the short
+    read as the file; the port refuses it."""
+    return DfsError(f"{meta['path']}: its {len(meta['blocks'])} blocks hold "
+                    f"{covered} of its {meta['size']} bytes")
 
 
 class Client:
@@ -202,6 +221,13 @@ class Client:
         self.rpc = rpc_client or RpcClient(tls=tls)
         self.shard_map: ShardMap | None = None
         self._refreshing = False
+        #: The config server that answered the last map fetch: the next
+        #: fetch starts there.
+        self._config_leader = self.config_addrs[0] if self.config_addrs \
+            else None
+        #: ``REDIRECT:`` answers followed, and shard-map fetches made.
+        self.redirects = 0
+        self.map_refreshes = 0
         #: Address rewriting applied just before dialing (reference host-alias
         #: indirection, mod.rs:86-99: cluster-internal addresses in the shard
         #: map / block locations are remapped to client-reachable ones — the
@@ -348,17 +374,54 @@ class Client:
 
     # ----------------------------------------------------------- shard map
 
-    async def refresh_shard_map(self) -> None:
-        """Fetch the ShardMap from a Config Server (reference mod.rs:1493-1534)."""
-        for cfg in self.config_addrs:
-            try:
-                resp = await self.rpc.call(
-                    self._dial(cfg), "ConfigService", "FetchShardMap", {}, timeout=5.0
-                )
+    async def refresh_shard_map(self) -> bool:
+        """Fetch the ShardMap from the config group's leader (reference
+        mod.rs:1493-1534). The reference walks ``config_addrs`` from the
+        first each time, drops a follower's ``Not Leader|<hint>`` and, when
+        every config server refuses, keeps its old map (or none) without
+        a word. Here a fetch starts at the config server that last
+        answered, tries a hinted leader next, and rounds the group again
+        with backoff until one answers or ``SHARD_MAP_RETRY_S`` (clamped
+        to the op's deadline budget) runs out. Returns whether a map was
+        installed."""
+        if not self.config_addrs:
+            return False
+        self.map_refreshes += 1
+        start = time.monotonic()
+        stop = start + SHARD_MAP_RETRY_S
+        rem = remaining_budget()
+        if rem is not None:
+            stop = min(stop, start + max(rem, 0.0))
+        backoff, last = 0.1, "no config server asked"
+        while True:
+            queue = [self._config_leader] + [
+                c for c in self.config_addrs if c != self._config_leader]
+            tried: set[str] = set()
+            while queue:
+                cfg = queue.pop(0)
+                if cfg in tried:
+                    continue
+                tried.add(cfg)
+                try:
+                    resp = await self.rpc.call(
+                        self._dial(cfg), "ConfigService", "FetchShardMap",
+                        {}, timeout=5.0)
+                except RpcError as e:
+                    last = f"{cfg}: {e.message}"
+                    hint = e.not_leader_hint
+                    if hint and hint not in tried:
+                        queue.insert(0, hint)
+                    continue
                 self.shard_map = ShardMap.from_dict(resp["shard_map"])
-                return
-            except RpcError as e:
-                logger.warning("shard map fetch from %s failed: %s", cfg, e.message)
+                self._config_leader = cfg
+                return True
+            now = time.monotonic()
+            if now >= stop:
+                logger.warning("shard map fetch failed for %.1f s: %s",
+                               now - start, last)
+                return False
+            await asyncio.sleep(min(backoff, stop - now))
+            backoff = min(backoff * 2, 1.0)
 
     def _masters_for(self, path: str | None) -> list[str]:
         """Shard-keyed master targets; static list when unsharded."""
@@ -539,6 +602,7 @@ class Client:
                     # Wrong shard: refresh the map FIRST, fall back to the
                     # stale map's peers only if the refresh fails
                     # (mod.rs:1442-1467).
+                    self.redirects += 1
                     stale_peers = self._masters_for_shard_hint(redirect)
                     await self.refresh_shard_map()
                     peers = self._masters_for_shard_hint(redirect) or \
@@ -1024,9 +1088,9 @@ class Client:
 
         await asyncio.gather(*(fetch(i) for i in range(len(blocks))))
         data = b"".join(results)  # type: ignore[arg-type]
-        if len(data) != meta["size"]:
-            data = data[: meta["size"]]
-        return data
+        if len(data) < meta["size"]:
+            raise _uncovered(meta, len(data))
+        return data[: meta["size"]]
 
     @_budgeted
     async def read_file_range(self, path: str, offset: int, length: int) -> bytes:
@@ -1045,6 +1109,9 @@ class Client:
         if offset >= meta["size"] or length <= 0:
             return b""
         length = min(length, meta["size"] - offset)
+        covered = sum(int(b["size"]) for b in meta["blocks"])
+        if covered < offset + length:
+            raise _uncovered(meta, covered)
         out: list[tuple[int, bytes]] = []
         pos = 0  # byte offset of current block start
         coros = []

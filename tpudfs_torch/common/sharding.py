@@ -53,6 +53,12 @@ class ShardMap:
                 seen[p] = None
         return list(seen)
 
+    def ranges(self) -> list[tuple[str, str]]:
+        """A range map's ``(end, shard)`` pairs in key order: each shard
+        owns the keys above the previous end up to and including its
+        own."""
+        return list(zip(self._range_ends, self._range_ids))
+
     def get_shard(self, key: str) -> str | None:
         """The shard owning ``key``."""
         if self.strategy == "hash":
