@@ -135,7 +135,10 @@ Then the live cluster:
   chunkservers' block cache off, every blockport the native engine),
   driven through the port's client as the chart's users build it (the
   config servers alone, ``ClientTls``, no local short circuit, 64 MiB
-  blocks): the ``dataset`` phase's 1 GiB token file written at 3x to
+  blocks, the chunkservers' scrubber at the chart's 60 s): a 1 MiB
+  probe file no restore reads written at 3x, one byte flipped in one
+  replica, which the scrubber must report in its log by the phase's end;
+  the ``dataset`` phase's 1 GiB token file written at 3x to
   ``/a/staging/`` and renamed across the shards to
   ``/z/train/tokens.bin``; the ``restore`` phase's rank shard saved by
   the port's ``CheckpointManager`` at ``/a/ckpt`` (3x hot copy, RS(3,2)
@@ -197,6 +200,7 @@ from tpudfs_torch import bench, read_profile, sweep_lab
 from tpudfs_torch.ckpt_chaos import (
     PutLog,
     data_shard_holders,
+    data_shard_victims,
     is_fault,
     retry_until,
 )
@@ -255,6 +259,11 @@ from tpudfs_torch.graft_entry import (
     positions,
     reconstructed,
     sync,
+)
+from tpudfs_torch.helm_chaos import (
+    first_config_answer,
+    log_times,
+    prefix_traffic,
 )
 
 REPO = Path(__file__).resolve().parent
@@ -1947,6 +1956,12 @@ SHARDED_TOKENS = "/z/train/tokens.bin"
 SHARDED_BATCHES = 100
 #: The phase's budget on the card (seconds).
 SHARDED_BUDGET_S = 180.0
+#: A file no restore reads, one replica of whose block the scrubber must
+#: find corrupt; 1 MiB of the seed's bytes.
+SHARDED_SCRUB_PROBE = "/z/scrub/probe.bin"
+#: The chunkservers' scrub interval when the chart sets none
+#: (``tpudfs/chunkserver/__main__.py``: ``--scrub-interval`` 60).
+SCRUB_DEFAULT_S = 60.0
 #: Seconds a save of step 2 may take to publish once its shard's leader
 #: is killed, resumes included.
 SHARDED_RESUME_S = 120.0
@@ -1960,13 +1975,20 @@ SPLIT_TRAFFIC_OPS = 150.0
 #: Seconds the traffic may run before the split must have moved the
 #: prefix to a new shard.
 SPLIT_WAIT_S = 90.0
+#: Seconds a Raft group (the config group, a shard's masters) may take to
+#: elect after its leader's kill.
+CONFIG_FAILOVER_WAIT_S = 60.0
 
 
 async def _first_answer(client, addrs, path: str, t_kill: float) -> dict:
     """Poll ``addrs`` (a shard's surviving masters) with ``GetFileInfo`` of
     ``path`` (a linearizable read: only a leader answers it) until one
-    answers; the seconds from ``t_kill`` and the address that answered."""
+    answers; the seconds from ``t_kill`` and the address that answered.
+    Raises once ``CONFIG_FAILOVER_WAIT_S`` pass with no answer."""
     while True:
+        if time.perf_counter() - t_kill > CONFIG_FAILOVER_WAIT_S:
+            raise AssertionError(f"sharded: no leader among {addrs} "
+                                 f"{CONFIG_FAILOVER_WAIT_S} s after the kill")
         for addr in addrs:
             try:
                 await client.rpc.call(addr, "MasterService", "GetFileInfo",
@@ -1993,22 +2015,6 @@ async def _until_done(what: str, op, attempt=None) -> str:
         outcome = f"resumed after {type(e).__name__}: {str(e)[:160]}"
     await retry_until(f"sharded: {what}", op, SHARDED_RESUME_S)
     return outcome
-
-
-async def _first_config_answer(rpc, addrs, t_kill: float) -> dict:
-    """Poll ``addrs`` (the surviving config servers) with ``FetchShardMap``
-    (a linearizable read: only a leader answers it) until one answers;
-    the seconds from ``t_kill`` and the address that answered."""
-    while True:
-        for addr in addrs:
-            try:
-                await rpc.call(addr, "ConfigService", "FetchShardMap", {},
-                               timeout=1.0)
-            except Exception:
-                continue
-            return {"config_failover_s": time.perf_counter() - t_kill,
-                    "new_config_leader": addr}
-        await asyncio.sleep(0.02)
 
 
 async def _save_through_failover(mgr, log, cluster, client, shard: str,
@@ -2041,6 +2047,40 @@ async def _save_through_failover(mgr, log, cluster, client, shard: str,
                        "during": f"step 2's put of {first}"},
             **failover, "seconds": time.perf_counter() - t0,
             "published": outcome}
+
+
+async def _scrub_probe(client, cluster, seed: int) -> dict:
+    """Write ``SHARDED_SCRUB_PROBE`` at 3x and flip one byte of its
+    block's first replica on disk: no restore reads it, so only the
+    holder's scrubber can find it. The block, the holder and when."""
+    data = np.random.default_rng(seed + 9).integers(
+        0, 256, 1 << 20, dtype=np.uint8).tobytes()
+    await _until_done("the scrub probe's write", lambda: client.create_file(
+        SHARDED_SCRUB_PROBE, data, overwrite=True))
+    block = (await client.get_file_info(SHARDED_SCRUB_PROBE))["blocks"][0]
+    addr = block["locations"][0]
+    _flip(cluster, addr, block["block_id"], 4097)
+    holder = next(cs.name for cs in cluster.chunkservers if cs.addr == addr)
+    return {"path": SHARDED_SCRUB_PROBE, "block": block["block_id"],
+            "holder": holder, "flipped_at": time.time()}
+
+
+def _scrub_found(cluster, probe: dict, interval_s: float) -> dict:
+    """Wait (at most one scrub interval and 30 s more from the flip) for
+    the holder's scrubber to log the probe's block corrupt
+    (``tpudfs/chunkserver/service.py``: ``scrubber found corruption in
+    block``); raises if it never does. The seconds from the flip to the
+    log line, by the line's own timestamp."""
+    needle = f"scrubber found corruption in block {probe['block']}"
+    deadline = probe["flipped_at"] + interval_s + 30.0
+    while not (found := log_times(cluster, probe["holder"], needle)):
+        if time.time() > deadline:
+            raise AssertionError(
+                f"sharded: {probe['holder']}'s scrubber never reported the "
+                f"flipped replica of {probe['block']}")
+        time.sleep(0.5)
+    return {**probe, "interval_s": interval_s, "reports": len(found),
+            "found_s": found[0] - probe["flipped_at"]}
 
 
 async def _raft_terms(cluster, client) -> dict:
@@ -2098,11 +2138,7 @@ async def _sharded_degraded(mgr, client, cluster, reader, spec: dict,
     ``device``: from the RS(3,2) copy, bit-exact, every block that lost a
     data shard rebuilt, once each by the GF(2^8) kernel on a card."""
     meta = await client.get_file_info(spec["ec_path"])
-    held = data_shard_holders([meta])
-    victims = sorted(held, key=lambda a: (-held[a], a))[:2]
-    lost = sum(1 for b in meta["blocks"]
-               if set(b["locations"][: int(b["ec_data_shards"])])
-               & set(victims))
+    victims, lost, held = data_shard_victims([meta])
     killed = []
     for cs in cluster.chunkservers:
         if cs.addr in victims:
@@ -2132,59 +2168,29 @@ async def _sharded_degraded(mgr, client, cluster, reader, spec: dict,
     present = [i for i, a in enumerate(first["locations"])
                if a not in victims][: int(first["ec_data_shards"])]
     return {"victims": victims, "killed": killed,
-            "data_shards_held": dict(held), "blocks": len(meta["blocks"]),
+            "data_shards_held": held, "blocks": len(meta["blocks"]),
             "blocks_lost_data": lost, "rebuilt_blocks": rebuilt,
             "gf256_launches": launches, "first_block_present": present,
             "seconds": seconds, "gbps": spec["size"] / seconds / 1e9}
 
 
-async def _prefix_traffic(client, paths: list[str], rate: float,
-                          stop: asyncio.Event) -> dict:
-    """Metadata traffic on the checkpoint's top-level prefix at ``rate``
-    calls a second until ``stop`` is set: in every 30 calls one
-    ``list_steps`` and one manifest read (its ``get_file_info`` and its
-    bytes), and ``get_file_info`` of ``paths`` (step 2's files) for the
-    rest, the calls the job's other ranks send while they restart and
-    poll. Each call is a task of its own (at most 64 at a time); a call
-    the cluster fails is counted, not raised: this is load, and the
-    restores beside it hold the bytes. Returns the calls sent, answered
-    and failed, the last error and the seconds."""
+def _prefix_op(client, paths: list[str]):
+    """The op of ``helm_chaos.prefix_traffic`` on the checkpoint's
+    top-level prefix: in every 30 calls one ``list_steps`` and one
+    manifest read (its ``get_file_info`` and its bytes), and
+    ``get_file_info`` of ``paths`` (step 2's files) for the rest, the
+    calls the job's other ranks send while they restart and poll."""
     mgr = CheckpointManager(client, SHARDED_CKPT, num_shards=1, ec=CKPT_EC)
-    loop = asyncio.get_running_loop()
-    gate = asyncio.Semaphore(64)
-    out = {"sent": 0, "answered": 0, "failed": 0, "last_error": None}
-    tasks: set = set()
 
-    async def call(i: int) -> None:
-        async with gate:
-            try:
-                if i % 30 == 0:
-                    await mgr.list_steps()
-                elif i % 30 == 15:
-                    await mgr.read_manifest(2)
-                else:
-                    await client.get_file_info(paths[i % len(paths)])
-                out["answered"] += 1
-            except Exception as e:
-                out["failed"] += 1
-                out["last_error"] = f"{type(e).__name__}: {str(e)[:160]}"
+    async def op(i: int) -> None:
+        if i % 30 == 0:
+            await mgr.list_steps()
+        elif i % 30 == 15:
+            await mgr.read_manifest(2)
+        else:
+            await client.get_file_info(paths[i % len(paths)])
 
-    t0 = loop.time()
-    while not stop.is_set():
-        wait = t0 + out["sent"] / rate - loop.time()
-        if wait > 0:
-            try:
-                await asyncio.wait_for(stop.wait(), wait)
-                break
-            except asyncio.TimeoutError:
-                pass
-        task = asyncio.ensure_future(call(out["sent"]))
-        tasks.add(task)
-        task.add_done_callback(tasks.discard)
-        out["sent"] += 1
-    seconds = loop.time() - t0
-    await asyncio.gather(*tasks)
-    return {**out, "seconds": seconds, "ops_per_s": out["sent"] / seconds}
+    return op
 
 
 async def _checked_restore(mgr, tree: dict, device, block_size: int,
@@ -2214,7 +2220,7 @@ async def _split_under_restores(cluster, factory, client, mgr, spec: dict,
                                 tree: dict, device, block_size: int,
                                 rate: float) -> dict:
     """The hot-prefix split under a restarting job: a second client sends
-    :func:`_prefix_traffic` on ``SHARDED_CKPT``'s top-level prefix while a
+    :func:`_prefix_op` traffic on ``SHARDED_CKPT``'s top-level prefix while a
     third restores step 2 into ``device`` back to back, until the config
     group's map hands the prefix to a new shard (at most ``SPLIT_WAIT_S``
     seconds). The new shard must be a 3-voter Raft group. Then step 2 is
@@ -2246,7 +2252,7 @@ async def _split_under_restores(cluster, factory, client, mgr, spec: dict,
                                  ec=CKPT_EC,
                                  reader=HbmReader(restorer, [device]))
         load = asyncio.ensure_future(
-            _prefix_traffic(traffic_client, paths, rate, stop))
+            prefix_traffic(_prefix_op(traffic_client, paths), rate, stop))
         split = asyncio.ensure_future(
             wait_moved(watch, prefix, source, SPLIT_WAIT_S))
         restores = []
@@ -2309,15 +2315,21 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
                   num_workers: int = 2, split_rps: float | None = None,
                   split_cooldown_s: float | None = None,
                   traffic_ops: float = SPLIT_TRAFFIC_OPS,
+                  scrub_interval_s: float | None = None,
                   workdir: Path | None = None) -> dict:
     """The ``sharded`` phase: the Helm chart's deployment (``HelmCluster``:
     3 config servers, ``shard-a`` and ``shard-z`` of 3 masters, a spare
-    group of 3, 5 chunkservers, TLS, the chunkservers' block cache off;
-    every chunkserver's blockport must be the native engine), driven
-    through the port's ``Client`` as the chart's users build it (the three
-    config servers alone, ``ClientTls``, ``local_reads=False``: every
-    byte crosses an encrypted blockport), ``block_size`` blocks:
+    group of 3, 5 chunkservers, TLS, the chunkservers' block cache off,
+    their scrubber at the chart's 60 s unless ``scrub_interval_s`` says
+    otherwise, which only a CPU rehearsal does; every chunkserver's
+    blockport must be the native engine),
+    driven through the port's ``Client`` as the chart's users build it
+    (the three config servers alone, ``ClientTls``, ``local_reads=False``:
+    every byte crosses an encrypted blockport), ``block_size`` blocks:
 
+    0. a probe file no restore reads (:func:`_scrub_probe`), one byte of
+       one replica flipped; by the phase's end the holder's scrubber
+       must have logged it corrupt;
     1. the ``dataset`` phase's token file (``file_bytes``) written at 3x to
        ``SHARDED_STAGING``, then renamed across the shards to
        ``SHARDED_TOKENS``;
@@ -2358,7 +2370,8 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
     try:
         with HelmCluster(tmp, tls=True, cache_blocks=0,
                          split_threshold_rps=split_rps,
-                         split_cooldown_s=split_cooldown_s) as cluster:
+                         split_cooldown_s=split_cooldown_s,
+                         scrub_interval_s=scrub_interval_s) as cluster:
             # The reference's checkpoint tiers' retry count (max_retries=8)
             # rides out an election the load alone can cause.
             factory = functools.partial(
@@ -2377,7 +2390,9 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
                             f"sharded: a chunkserver serves its TLS "
                             f"blockport from the asyncio fallback, not the "
                             f"native engine: {engines}")
-                    out = {"engines": engines}
+                    out = {"engines": engines,
+                           "scrub": await _scrub_probe(client, cluster,
+                                                       seed)}
                     t0 = time.perf_counter()
                     written = await _until_done(
                         "the dataset's write",
@@ -2467,9 +2482,10 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
                 # while the config group elects.
                 client = factory()
                 try:
-                    failover = asyncio.ensure_future(_first_config_answer(
+                    failover = asyncio.ensure_future(first_config_answer(
                         client.rpc, [a for a in cluster.config_addrs
-                                     if a != killed[1]], t_kill))
+                                     if a != killed[1]], t_kill,
+                        CONFIG_FAILOVER_WAIT_S))
                     reader = HbmReader(client, [device])
                     mgr = CheckpointManager(client, SHARDED_CKPT,
                                             num_shards=1, ec=CKPT_EC,
@@ -2496,6 +2512,9 @@ def sharded_phase(device: torch.device, *, params: int = CKPT_PARAMS,
                 cluster, factory, tokens, out.pop("tokens_shard"), device,
                 batches=batches, seed=seed, num_workers=num_workers)
             out["degraded"] = asyncio.run(degraded())
+            out["scrub"] = _scrub_found(
+                cluster, out["scrub"], SCRUB_DEFAULT_S
+                if scrub_interval_s is None else scrub_interval_s)
             start_s = cluster.start_s
             shards = cluster.shards
             spare_groups = cluster.spare_groups

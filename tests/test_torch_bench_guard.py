@@ -4,8 +4,8 @@ line and exit 3 when no window completes, disarmed before the first
 tick), the refusal to run without a card, the two read probes
 (``read_profile``, ``sweep_lab``) over a tiny layout on the CPU, and the
 checkpoint bench (``run_ckpt``) on a ``MiniCluster`` of five
-chunkservers, two of which it kills, through the reference's client and
-through the port's. Counterpart of ``tests/test_bench_guard.py``."""
+chunkservers, the two it names stopped, through the reference's client
+and through the port's. Counterpart of ``tests/test_bench_guard.py``."""
 
 from __future__ import annotations
 
@@ -112,7 +112,10 @@ def test_read_probes_on_a_tiny_layout(tmp_path):
 def test_ckpt_bench_restores_healthy_and_with_two_chunkservers_dead(
         tmp_path, device, client):
     """``run_ckpt`` with the reference's client and with the port's
-    (``tpudfs_torch.client.client``), on the same kind of cluster."""
+    (``tpudfs_torch.client.client``), on the same kind of cluster. The
+    two chunkservers it names (the holders of the most data shards of its
+    EC-only checkpoint) are stopped; each degraded restore rebuilds every
+    block that lost a data shard (the plain twin on the CPU)."""
     if device is None and not torch.cuda.is_available():
         # The default device is the card: without one, run_ckpt refuses
         # before it reaches the cluster, and never restores to the host.
@@ -148,10 +151,12 @@ def test_ckpt_bench_restores_healthy_and_with_two_chunkservers_dead(
                     client = RefClient(list(c.masters), rpc_client=c.client,
                                        block_size=65536, etag_mode="crc64")
 
-                async def kill_two():
-                    for i in (3, 4):
-                        c.heartbeats[i].stop()
-                        await c.chunkservers[i].stop()
+                async def kill_two(victims):
+                    assert len(victims) == 2
+                    for i, cs in enumerate(c.chunkservers):
+                        if cs.address in victims:
+                            c.heartbeats[i].stop()
+                            await cs.stop()
 
                 try:
                     return await bench.run_ckpt(client, kill_two, {device!r})
@@ -172,3 +177,11 @@ def test_ckpt_bench_restores_healthy_and_with_two_chunkservers_dead(
     assert r["ckpt_logical_bytes_per_step"] > 4 * 64 * 1024 * 0.75
     assert r["etag_mode"] == "crc64"
     assert r["platform"] == ("cpu" if device == "cpu" else "gpu")
+    assert len(r["ckpt_degraded_victims"]) == 2
+    assert r["ckpt_degraded_rebuilds"] \
+        == r["ckpt_degraded_blocks_lost_data"] > 0
+    if device == "cpu":
+        assert r["ckpt_degraded_gf256_launches"] == 0  # the plain twin
+    else:
+        assert r["ckpt_degraded_gf256_launches"] \
+            >= r["ckpt_degraded_rebuilds"]

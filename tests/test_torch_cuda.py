@@ -765,10 +765,11 @@ def test_ckpt_bench_against_process_cluster_on_card(cuda_device, tmp_path):
     """``python3 -m tpudfs_torch.bench --ckpt``: the port's checkpoint
     bench on 1 master and 5 chunkserver processes spawned by the port's
     launcher, through the port's ``Client``, restores into device memory
-    on ``cuda:0``, the last two chunkservers SIGKILLed before the degraded
-    restores (as ``bench.py:485-616`` runs it). Prints one
-    ``CKPT_ON_CARD`` JSON line: the result, its seconds and its kernel
-    launches."""
+    on ``cuda:0``, the two chunkservers holding the most data shards of
+    its EC-only checkpoint SIGKILLed before the degraded restores, which
+    read with the local short circuit off: every block that lost a data
+    shard is rebuilt on the card. Prints one ``CKPT_ON_CARD`` JSON line:
+    the result, its seconds and its kernel launches."""
     import json
     import time
 
@@ -787,7 +788,13 @@ def test_ckpt_bench_against_process_cluster_on_card(cuda_device, tmp_path):
     # Every restored block is verified on the card; the degraded restores
     # rebuild through the GF(2^8) decode.
     assert launches["crc32c_blocks"] + launches["crc32c_chunks"] > 0, launches
-    report = {"seconds": seconds, "launches": launches, "result": result}
+    lost = result["ckpt_degraded_blocks_lost_data"]
+    assert result["ckpt_degraded_rebuilds"] == lost > 0, result
+    assert result["ckpt_degraded_gf256_launches"] >= lost, result
+    assert launches["gf256_matmul"] >= (bench.REPS + 1) * lost, launches
+    report = {"seconds": seconds, "launches": launches, "result": result,
+              "rebuild_decode": _rebuild_decode_row(cuda_device),
+              "device": torch.cuda.get_device_name(0)}
     print("CKPT_ON_CARD " + json.dumps(report), flush=True)
 
 
@@ -795,7 +802,7 @@ def test_ckpt_bench_reference_and_port_clients_on_card(cuda_device,
                                                        tmp_path):
     """``run_ckpt`` through the reference's ``Client`` (P) and the port's
     (C) in turns P, C, C, P, each on a fresh cluster of 1 master and 5
-    chunkserver processes (its last two SIGKILLed), restores into
+    chunkserver processes (the two it names SIGKILLed), restores into
     ``cuda:0``. Prints one ``CKPT_CLIENTS_ON_CARD`` JSON line with each
     run's numbers."""
     import json
@@ -810,9 +817,10 @@ def test_ckpt_bench_reference_and_port_clients_on_card(cuda_device,
                             cache_blocks=bench.CS_CACHE_BLOCKS) as cluster:
             maddr = cluster.master_addr
 
-            def kill_two() -> None:
-                for cs in cluster.chunkservers[-2:]:
-                    cs.kill()
+            def kill_two(victims, cluster=cluster) -> None:
+                for cs in cluster.chunkservers:
+                    if cs.addr in victims:
+                        cs.kill()
 
             async def run() -> dict:
                 cls = RefClient if which == "reference" else Client
@@ -829,6 +837,7 @@ def test_ckpt_bench_reference_and_port_clients_on_card(cuda_device,
             k: result[k] for k in (
                 "ckpt_save_GBps", "ckpt_save_win", "ckpt_restore_GBps",
                 "ckpt_restore_win", "ckpt_restore_degraded_GBps",
+                "ckpt_degraded_rebuilds", "ckpt_degraded_gf256_launches",
                 "plain_write_GBps")}})
     print("CKPT_CLIENTS_ON_CARD " + json.dumps(runs), flush=True)
 
@@ -1131,6 +1140,79 @@ def _sharded_chaos_parts(device, root, kib: int,
     return report
 
 
+#: The Helm chart's events on the card: 80 MiB trees (one full 64 MiB
+#: block and a tail a shard), the sharded phase's 150 calls a second on
+#: the hot prefix, the masters' own 30 s split cooldown.
+HELM_EVENT_KIB = 81920
+HELM_BLOCK = 64 << 20
+HELM_TRAFFIC_OPS = 150.0
+MASTERS_COOLDOWN_S = 30.0
+
+
+def _helm_fault_parts(device, root) -> dict:
+    """Three fault events on one ``HelmCluster`` with the chart's values
+    (TLS, 100 rps, the masters' 30 s cooldown, 5 chunkservers, its block
+    cache) and two spare groups, through the port's client on the config
+    servers alone (``block_size`` blocks, ``max_retries=8``, no short
+    circuit), every restore through an ``HbmReader`` on ``device``:
+    ``helm_chaos.config_failover_mid_split`` on ``/a/``,
+    ``helm_chaos.split_in_cooldown`` on ``/b/``, then
+    ``ckpt_chaos.kills_tear_checkpoint`` at ``/a/torn-ckpt`` (the shard
+    ``/a/`` split to, which cannot split again). Returns each stage's
+    seconds, kernel launches and result, the cluster's start and its
+    departures from the chart. (Its CPU counterpart, at a small size, is
+    ``tests/test_torch_helm_faults.py``.)"""
+    import functools
+    import time
+
+    from tpudfs_torch import ckpt_chaos as cc
+    from tpudfs_torch import helm_chaos as hc
+    from tpudfs_torch.cluster import HelmCluster
+    from tpudfs_torch.graft_entry import launch_counts
+
+    kib, block_size = HELM_EVENT_KIB, HELM_BLOCK
+    report = {}
+    with HelmCluster(root, tls=True, spares=2) as cluster:
+        factory = functools.partial(cluster.client, block_size=block_size,
+                                    max_retries=8, local_reads=False)
+        by_addr = {cs.addr: cs for cs in cluster.chunkservers}
+
+        def split_event(fn, prefix):
+            return lambda: fn(cluster, factory, prefix=prefix, kib=kib,
+                              device=device, rate=HELM_TRAFFIC_OPS,
+                              cooldown_s=MASTERS_COOLDOWN_S,
+                              block_size=block_size)
+
+        async def torn():
+            client = factory()
+            try:
+                return await cc.kills_tear_checkpoint(
+                    client, lambda v: [by_addr[a].kill() for a in v],
+                    list(by_addr), base="/a/torn-ckpt", kib=kib,
+                    reader=HbmReader(client, [device]), device=device,
+                    ec=(2, 1))
+            finally:
+                await client.close()
+
+        for name, stage in (
+                ("config_failover_mid_split",
+                 split_event(hc.config_failover_mid_split, "/a/")),
+                ("split_in_cooldown",
+                 split_event(hc.split_in_cooldown, "/b/")),
+                ("kills_tear_checkpoint", torn)):
+            before, t0 = launch_counts(), time.perf_counter()
+            result = asyncio.run(stage())
+            seconds = time.perf_counter() - t0
+            after = launch_counts()
+            report[name] = {"seconds": seconds,
+                            "launches": {k: after[k] - before[k]
+                                         for k in after},
+                            "result": result}
+        report["start_s"] = cluster.start_s
+        report["departures"] = cluster.departures
+    return report
+
+
 def test_sharded_ckpt_chaos_on_card(cuda_device, tmp_path):
     """The fault tier's checkpoint stages on the two-shard-ha TLS
     deployment, every restore into ``cuda:0`` bit-exact (each stage checks
@@ -1138,11 +1220,16 @@ def test_sharded_ckpt_chaos_on_card(cuda_device, tmp_path):
     and resumes a save; the roulette axis's plan SIGKILLs at least one
     master (and the checkpoint shard's leader) and partitions at least
     one shard leader from the saving client, no torn step is listed,
-    every acked step is listed. Prints one ``SHARDED_CHAOS_ON_CARD`` JSON
-    line."""
+    every acked step is listed. Then the Helm chart's three events
+    (:func:`_helm_fault_parts`): a config failover mid-split, a split
+    held by a new leader's 30 s cooldown, a save the kills alone tear.
+    Prints one ``SHARDED_CHAOS_ON_CARD`` JSON line, before its checks."""
     import json
 
     report = _sharded_chaos_parts(cuda_device, tmp_path, 4096)
+    helm = report["helm"] = _helm_fault_parts(cuda_device, tmp_path / "helm")
+    report["device"] = torch.cuda.get_device_name(0)
+    print("SHARDED_CHAOS_ON_CARD " + json.dumps(report), flush=True)
     for name in ("t10", "roulette"):
         launches = report[name]["launches"]
         assert launches["crc32c_blocks"] + launches["crc32c_chunks"] > 0, \
@@ -1161,5 +1248,18 @@ def test_sharded_ckpt_chaos_on_card(cuda_device, tmp_path):
     assert roulette["acked"], roulette
     assert set(roulette["acked"]) <= set(roulette["listed"]), roulette
     assert set(roulette["restore_s"]) == set(roulette["listed"]), roulette
-    report["device"] = torch.cuda.get_device_name(0)
-    print("SHARDED_CHAOS_ON_CARD " + json.dumps(report), flush=True)
+    mid = helm["config_failover_mid_split"]["result"]
+    assert mid["save"]["shard0_puts"] == 0, mid
+    assert mid["stale_map_redirects"] >= 1 and len(mid["voters"]) == 3, mid
+    assert sum(map(len, mid["split_lines"].values())) == 1, mid
+    cool = helm["split_in_cooldown"]["result"]
+    assert cool["leader_to_split_s"] >= MASTERS_COOLDOWN_S, cool
+    assert cool["restore_launches"]["crc32c_blocks"] >= \
+        cool["full_blocks"] > 0, cool
+    torn = helm["kills_tear_checkpoint"]
+    assert torn["result"]["interrupted"] and torn["result"]["error"], torn
+    assert torn["result"]["resume_puts"][0] == 0, torn
+    assert torn["result"]["listed_torn"] == [1], torn
+    # Two steps of two shards restored, one full block and a whole-chunk
+    # tail each: each block's CRC folds on the card.
+    assert torn["launches"]["crc32c_blocks"] >= 8, torn

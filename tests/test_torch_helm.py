@@ -79,8 +79,6 @@ DEPARTURES = {
     # three 1-voter groups.
     ("config", "--bootstrap-shards"), ("master", "--shard-id"),
     ("master", "--peers"), ("spare", "--peers"),
-    # the scrubber held off: its 60 s default re-reads every block.
-    ("chunkserver", "--scrub-interval"),
 }
 
 

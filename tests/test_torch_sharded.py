@@ -391,7 +391,10 @@ def test_sharded_phase_small_on_cpu(tmp_path):
     restore through the long-lived client's old map following a
     redirect, every infeed batch exact through a second SIGKILLed leader,
     the config leader SIGKILLed before the degraded restore (every block
-    that lost a data shard rebuilt); no ``tpudfs`` or ``jax`` module."""
+    that lost a data shard rebuilt), a replica flipped on disk that only
+    the chunkservers' scrubber reads (every 3 s here, the chart's 60 s on
+    the card) reported in its holder's log; no ``tpudfs`` or ``jax``
+    module."""
     r = run_without_jax(f"""
         from pathlib import Path
         import torch
@@ -399,7 +402,7 @@ def test_sharded_phase_small_on_cpu(tmp_path):
         result = chip_smoke.sharded_phase(
             torch.device("cpu"), params=40_000, file_bytes=1 << 20,
             block_size=65536, batches=10, num_workers=0, split_rps=5,
-            split_cooldown_s=2, traffic_ops=20,
+            split_cooldown_s=2, traffic_ops=20, scrub_interval_s=3,
             workdir=Path({str(tmp_path)!r}))
     """, timeout=150)
     assert r["loaded_jax"] == [] and r["foreign_modules"] == []
@@ -438,6 +441,10 @@ def test_sharded_phase_small_on_cpu(tmp_path):
                                                   False]
     assert r["cut"] is not None and len(r["reduced"]) == 4
     assert any("split threshold 5" in d for d in r["departures"])
+    assert any("scrubber every 3" in d for d in r["departures"])
+    scrub = r["scrub"]
+    assert scrub["path"] == "/z/scrub/probe.bin" and scrub["reports"] >= 1
+    assert 0 < scrub["found_s"] <= 3 + 30
     assert list(tmp_path.iterdir()) == []  # the cluster's dirs are removed
 
 

@@ -261,7 +261,7 @@ import tpudfs_torch.gpu.checkpoint, tpudfs_torch.gpu.record_source
 import tpudfs_torch.gpu.wds, tpudfs_torch.gpu.infeed
 import tpudfs_torch.common.resilience, tpudfs_torch.common.sharding
 import tpudfs_torch.client.local, tpudfs_torch.bench, tpudfs_torch.cluster
-import tpudfs_torch.netem
+import tpudfs_torch.netem, tpudfs_torch.helm_chaos
 import chip_smoke
 before = sorted(m for m in sys.modules if m.split(".")[0] == "grpc")
 import tpudfs_torch.client.client
@@ -469,7 +469,7 @@ def test_entry_points_default_to_cuda(tmp_path):
         from tpudfs_torch import bench, ckpt_chaos, read_profile, sweep_lab
         reader = HbmReader(client, [CPU])
         for run in (bench.run_against(client, remote=False),
-                    bench.run_ckpt(client, lambda: None),
+                    bench.run_ckpt(client, lambda victims: None),
                     read_profile.profile(client, paths=["/f"]),
                     sweep_lab.lab(client, paths=["/f"]),
                     ckpt_chaos.kill_mid_checkpoint(

@@ -34,8 +34,10 @@ what ``main`` runs by default), or a
 :class:`~tpudfs_torch.client.local.LocalClient` over stores laid out on
 local disk (``remote=False``: :func:`run_local`, ``--local``).
 :func:`run_ckpt` times sharded checkpoint saves and restores on a live
-cluster of five chunkservers, two of which the caller kills
-(:func:`run_remote_ckpt`, ``--ckpt``).
+cluster of five chunkservers, two of which the caller kills: the two
+that hold the most data shards of an EC-only checkpoint, whose restores
+then rebuild every block that lost one (:func:`run_remote_ckpt`,
+``--ckpt``).
 
 vs_baseline: ``value`` over 90% of this host's raw host->device rate,
 the best of three honest harnesses (:func:`raw_infeed`).
@@ -81,7 +83,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpudfs_torch.ckpt_chaos import ckpt_tree, trees_equal
+from tpudfs_torch.ckpt_chaos import ckpt_tree, data_shard_victims, trees_equal
 from tpudfs_torch.client.local import LocalClient
 from tpudfs_torch.common import layout, native
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE
@@ -94,6 +96,7 @@ from tpudfs_torch.gpu.ici_replication import (
     make_mesh,
     replicated_write_step,
 )
+from tpudfs_torch.gpu.rs_cuda import gf_matmul_words
 from tpudfs_torch.graft_entry import sync
 
 REPO = Path(__file__).resolve().parents[1]
@@ -794,8 +797,7 @@ def run_remote(device, workdir: Path) -> dict:
 def run_remote_ckpt(device, workdir: Path) -> dict:
     """:func:`run_ckpt` on a cluster of 1 master and 5 chunkservers spawned
     under ``workdir``, through the port's ``Client`` (1 MiB blocks, CRC-64
-    ETags); the two victims are the last two chunkservers, SIGKILLed, as
-    the JAX bench's ``_run_ckpt`` kills them."""
+    ETags); the two victims :func:`run_ckpt` names are SIGKILLed."""
     from tpudfs_torch.client.client import Client
     from tpudfs_torch.cluster import ProcessCluster
 
@@ -803,9 +805,10 @@ def run_remote_ckpt(device, workdir: Path) -> dict:
     _tick("cluster-spawn")
     with ProcessCluster(workdir, n_cs=5,
                         cache_blocks=CS_CACHE_BLOCKS) as cluster:
-        def kill_two() -> None:
-            for cs in cluster.chunkservers[-2:]:
-                cs.kill()
+        def kill_two(victims) -> None:
+            for cs in cluster.chunkservers:
+                if cs.addr in victims:
+                    cs.kill()
 
         async def run() -> dict:
             client = Client([cluster.master_addr], block_size=BLOCK_BYTES,
@@ -862,11 +865,18 @@ async def run_ckpt(client, kill_two, device=None) -> dict:
     same logical bytes as 3x-replicated ``create_file`` puts), CKPT_STEPS
     timed saves of CKPT_SHARDS shards (hot 3x + RS(3,2) cold copy, atomic
     manifest commit), REPS restores, then an EC-only checkpoint restored
-    after ``kill_two()`` (sync or async) has killed two of the five
-    chunkservers, every shard through RS(3,2) reconstruction. Every
-    restore is checked bit-exact. Restores land in device memory through
-    an :class:`HbmReader` on ``device`` (default ``cuda:0``); a host
-    restore is asked for with ``torch.device("cpu")``."""
+    after ``kill_two(victims)`` (sync or async) has killed the two
+    chunkservers at ``victims``: of the five, those that hold the most
+    of its data shards (``ckpt_chaos.data_shard_victims``). Those
+    restores read with the client's local short circuit off, so that no
+    shard is read off a dead chunkserver's disk: every block that lost a
+    data shard comes out of an RS(3,2) rebuild. Raises unless each
+    degraded restore rebuilt exactly those blocks (the reader's
+    ``ec_rebuilds``) and, on a card, launched the GF(2^8) kernel at least
+    that often. Every restore is checked bit-exact. Restores land in
+    device memory through an :class:`HbmReader` on ``device`` (default
+    ``cuda:0``); a host restore is asked for with
+    ``torch.device("cpu")``."""
     device = resolve_device(device)
     await _wait_ready(client, "/ckpt/probe")
     trees = {step: {s: ckpt_tree(step, s, kib=CKPT_TREE_KIB)
@@ -910,25 +920,44 @@ async def run_ckpt(client, kill_two, device=None) -> dict:
         check(out, step, "restore")
         _tick(f"ckpt-restore{rep}")
 
-    # EC-only checkpoint (no hot copy to fail over to), then two of five
-    # chunkservers killed: every shard read is an RS(3,2) rebuild. One
-    # untimed restore absorbs the dead peers' discovery.
+    # EC-only checkpoint (no hot copy to fail over to), then the two
+    # chunkservers holding the most of its data shards killed: every block
+    # that lost one is an RS(3,2) rebuild. One untimed restore absorbs
+    # the dead peers' discovery.
     ec_mgr = CheckpointManager(client, "/ckpt/bench-ec",
                                num_shards=CKPT_SHARDS, ec=(3, 2),
                                hot_copies=False, reader=reader)
-    await ec_mgr.save(1, trees[1])
-    killed = kill_two()
+    manifest = await ec_mgr.save(1, trees[1])
+    metas = [await client.get_file_info(s["ec_path"])
+             for s in manifest["shards"]]
+    victims, lost, _ = data_shard_victims(metas)
+    killed = kill_two(victims)
     if inspect.isawaitable(killed):
         await killed
     _tick("ckpt-kill")
-    check(await ec_mgr.restore(1, device=device), 1, "degraded restore")
-    degraded_samples = []
-    for rep in range(REPS):
-        t0 = time.perf_counter()
-        out = await ec_mgr.restore(1, device=device)
-        degraded_samples.append(logical / (time.perf_counter() - t0) / 1e9)
-        check(out, 1, "degraded restore")
-        _tick(f"ckpt-degraded{rep}")
+    local_reads, client.local_reads = client.local_reads, False
+    try:
+        degraded_samples, rebuilds, launches = [], [], []
+        for rep in range(REPS + 1):
+            r0, l0 = reader.ec_rebuilds, gf_matmul_words.launches
+            t0 = time.perf_counter()
+            out = await ec_mgr.restore(1, device=device)
+            sync(device)
+            seconds = time.perf_counter() - t0
+            check(out, 1, "degraded restore")
+            rebuilds.append(reader.ec_rebuilds - r0)
+            launches.append(gf_matmul_words.launches - l0)
+            if rep:
+                degraded_samples.append(logical / seconds / 1e9)
+            _tick(f"ckpt-degraded{rep}")
+    finally:
+        client.local_reads = local_reads
+    if not lost or any(r != lost for r in rebuilds):
+        raise AssertionError(f"{lost} blocks lost a data shard; the "
+                             f"degraded restores rebuilt {rebuilds}")
+    if device.type == "cuda" and min(launches) < lost:
+        raise AssertionError(f"{lost} blocks lost a data shard; the "
+                             f"GF(2^8) kernel launched {launches}")
 
     med = statistics.median
     save, plain = med(save_samples), med(plain_samples)
@@ -936,7 +965,8 @@ async def run_ckpt(client, kill_two, device=None) -> dict:
         "metric": (
             "sharded-checkpoint save/restore GB/s (4 shards, hot 3x "
             "+ RS(3,2) cold copy, atomic manifest commit; degraded = "
-            "EC-only restore with 2/5 chunkservers killed)"
+            "EC-only restore with the 2 of 5 chunkservers holding the most "
+            "data shards killed, every block that lost one rebuilt)"
         ),
         "value": save,
         "unit": "GB/s",
@@ -948,6 +978,10 @@ async def run_ckpt(client, kill_two, device=None) -> dict:
         "ckpt_restore_win": _winmm(restore_samples),
         "ckpt_restore_degraded_GBps": med(degraded_samples),
         "ckpt_restore_degraded_win": _winmm(degraded_samples),
+        "ckpt_degraded_victims": victims,
+        "ckpt_degraded_blocks_lost_data": lost,
+        "ckpt_degraded_rebuilds": min(rebuilds),
+        "ckpt_degraded_gf256_launches": min(launches),
         "plain_write_GBps": plain,
         "ckpt_shards": CKPT_SHARDS,
         "ckpt_steps": CKPT_STEPS,

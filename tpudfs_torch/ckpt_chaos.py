@@ -6,7 +6,8 @@ of the checkpoint stages of the JAX package's three fault tiers:
   ``_MemDfsClient``, ``scenario_ckpt``): :class:`MemDfsClient`,
   :func:`ckpt_scenario`;
 - the live tier's kill-mid-checkpoint stage (``scripts/chaos_live.py``
-  t10): :func:`kill_mid_checkpoint`;
+  t10): :func:`kill_mid_checkpoint`, and its variant whose saver is
+  never cancelled, :func:`kills_tear_checkpoint`;
 - the roulette's checkpoint axis (``scripts/chaos_roulette.py``: the
   manager, ``checkpointer``, ``settle`` and the post-fault check):
   :func:`roulette_manager`, :func:`save_through_faults`,
@@ -55,6 +56,7 @@ from tpudfs_torch.gpu.checkpoint import (
     IncompleteCheckpointError,
 )
 from tpudfs_torch.gpu.rs_cuda import gf_matmul_words
+from tpudfs_torch.graft_entry import launch_counts, sync
 
 logger = logging.getLogger(__name__)
 
@@ -333,23 +335,43 @@ async def retry_until(what: str, op, deadline_s: float) -> float:
             await asyncio.sleep(1.0)
 
 
-async def _restore_checked(mgr, step: int, kib: int, device) -> float:
+async def restore_checked(mgr, step: int, kib: int, device,
+                          block_size: int | None = None) -> dict:
+    """Restore ``step`` through ``mgr`` into ``device``, bit-exact. Given
+    ``block_size``, on a card ``crc32c_blocks`` must launch at least once
+    a full block. The seconds, GB/s (payload over the restore's wall
+    time), full blocks (None without ``block_size``) and launches."""
+    manifest = await mgr.read_manifest(step)
+    size = sum(s["size"] for s in manifest["shards"])
+    full = None if block_size is None else \
+        sum(s["size"] // block_size for s in manifest["shards"])
+    before = launch_counts()
     t0 = time.perf_counter()
     trees = await mgr.restore(step, device=device)
+    sync(device)
     seconds = time.perf_counter() - t0
     assert_restores_bit_exact(trees, step, kib=kib)
-    return seconds
+    after = launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    if device.type == "cuda" and full and launched["crc32c_blocks"] < full:
+        raise AssertionError(f"step {step}: {full} full blocks restored, "
+                             f"{launched}")
+    return {"step": step, "seconds": seconds, "gbps": size / seconds / 1e9,
+            "full_blocks": full, "launches": launched}
 
 
 class PutLog:
     """``client`` with its ``create_file`` calls logged by path, so a stage
     can see a save's own progress: ``started(path)`` is set when a put of
-    ``path`` begins, ``returned`` holds the puts that have returned."""
+    ``path`` begins, ``returned`` holds the puts that have returned.
+    ``before[path]`` (a sync or async callable, run once) runs as the
+    first put of ``path`` begins, before anything of it is sent."""
 
     def __init__(self, client):
         self._client = client
         self.calls: list[str] = []
         self.returned: set[str] = set()
+        self.before: dict = {}
         self._started: dict[str, asyncio.Event] = {}
 
     def __getattr__(self, name):
@@ -361,6 +383,9 @@ class PutLog:
     async def create_file(self, path, *args, **kwargs):
         self.calls.append(path)
         self.started(path).set()
+        hook = self.before.pop(path, None)
+        if hook is not None:
+            await _call(hook)
         out = await self._client.create_file(path, *args, **kwargs)
         self.returned.add(path)
         return out
@@ -439,11 +464,143 @@ async def kill_mid_checkpoint(client, kill_first, kill_mid, *, base: str,
         raise AssertionError(
             f"namespace lists {steps}, want [1, 2]: a torn or missing "
             "checkpoint is visible")
-    restore_s = {s: await _restore_checked(mgr, s, kib, device)
+    restore_s = {s: (await restore_checked(mgr, s, kib, device))["seconds"]
                  for s in steps}
     return {"mid_save": mid_save, "interrupted": interrupted,
             "baseline_s": baseline_s,
             "resume_s": resumed_s, "resume_puts": resume_puts,
+            "shards_skipped": mgr.stats["shards_skipped"],
+            "degraded_shard_reads": mgr.stats["degraded_shard_reads"],
+            "restore_s": restore_s}
+
+
+def _live_copies(block: dict, dead) -> bool:
+    """A replicated block keeps a live replica; an EC block keeps ``k``
+    live shards."""
+    alive = [a for a in block["locations"] if a and a not in dead]
+    k = int(block.get("ec_data_shards") or 0)
+    return len(alive) >= k if k else bool(alive)
+
+
+def tearing_victim(metas: dict, ec: tuple[int, int], chunkservers) -> str:
+    """The chunkserver whose death tears an RS(``ec``) put that starts
+    now, read from the metadata of the files a save has landed (``{path:
+    get_file_info}``): one that holds a shard of every landed EC block
+    (the placement put it in each, and puts it in the next one until the
+    master drops it), whose loss leaves every landed block a live copy
+    and at least ``k + m`` others of the live ``chunkservers``
+    (addresses) to place the resumed put on. Raises RuntimeError when no
+    chunkserver qualifies."""
+    blocks = [b for meta in metas.values() for b in meta["blocks"]]
+    servers = set(chunkservers)
+    ec_blocks = [b for b in blocks if int(b.get("ec_data_shards") or 0)]
+    if not ec_blocks:
+        raise RuntimeError("no landed EC block to read a victim from")
+    common = set.intersection(*(set(b["locations"]) for b in ec_blocks))
+    for victim in sorted(common - {""}):
+        if len(servers - {victim}) >= sum(ec) and all(
+                _live_copies(b, {victim}) for b in blocks):
+            return victim
+    raise RuntimeError(
+        f"no chunkserver tears an RS{tuple(ec)} put and leaves every "
+        f"landed block a live copy: every EC block holds {sorted(common)}, "
+        f"{len(servers)} chunkservers live")
+
+
+async def kills_tear_checkpoint(client, kill, chunkservers, *, base: str,
+                                kib: int, reader, device=None,
+                                ec: tuple[int, int] = (2, 1),
+                                resume_s: float = 90.0) -> dict:
+    """A save that the kills alone tear: the variant of
+    :func:`kill_mid_checkpoint` whose saver is never cancelled.
+
+    A 2-shard checkpoint (hot 3x copy and an RS(``ec``) cold copy) saves
+    step 1, then step 2's shard 0. The victim is read from the save's own
+    metadata (:func:`tearing_victim`, ``chunkservers`` the live ones'
+    addresses): a chunkserver holding a shard of every landed EC block,
+    whose loss leaves every block of step 1 and of shard 0 a live copy.
+    Shard 1's hot copy lands; as its cold copy's put begins,
+    ``kill([victim])`` (sync or async, addresses) SIGKILLs it. The master
+    places the put on the victim until its liveness cutoff drops it, so
+    the put fails by itself and the save with it (``interrupted``; the
+    save is awaited in place, never a task that anything could cancel).
+    Step 2 must then not be listed. The save is
+    resumed until it publishes, within ``resume_s`` (past the master's
+    cutoff): no payload of shard 0, whose ETags match, may be put again.
+    The namespace must list exactly [1, 2], and both steps restore
+    bit-exact through ``reader`` into ``device`` (``cuda:0`` by default).
+
+    Returns the victim, the blocks it left live, how the save ended (its
+    error), what was listed while torn, the resume's seconds and payload
+    puts a shard, the manager's ``shards_skipped`` and
+    ``degraded_shard_reads``, and each step's restore seconds."""
+    device = resolve_device(device)
+    log = PutLog(client)
+    mgr = CheckpointManager(log, base, num_shards=2, ec=ec, reader=reader)
+    trees = {s: _trees(s, kib) for s in (1, 2)}
+    payloads = {
+        (step, s): [ckptpaths.shard_data_path(base, step, s),
+                    ckptpaths.shard_ec_path(base, step, s)]
+        for step, s in ((1, 0), (1, 1), (2, 0), (2, 1))}
+    t0 = time.perf_counter()
+    await mgr.save(1, trees[1])
+    baseline_s = time.perf_counter() - t0
+    await mgr.save_shard(2, 0, trees[2][0])
+    landed = [p for key in ((1, 0), (1, 1), (2, 0)) for p in payloads[key]]
+    metas = {p: await client.get_file_info(p) for p in landed}
+    victim = tearing_victim(metas, ec, chunkservers)
+    kills = []
+
+    async def kill_victim() -> None:
+        kills.append(time.perf_counter())
+        await _call(kill, [victim])
+
+    log.before[payloads[2, 1][1]] = kill_victim
+
+    async def save_rest() -> None:
+        await mgr.save_shard(2, 1, trees[2][1])
+        await mgr.commit(2)
+
+    t0 = time.perf_counter()
+    try:
+        await save_rest()
+        error = None
+    except Exception as e:
+        if not (is_fault(e) or isinstance(e, IncompleteCheckpointError)):
+            raise
+        error = f"{type(e).__name__}: {str(e)[:200]}"
+    torn_s = time.perf_counter() - t0
+    if not kills:
+        raise AssertionError("the save never began shard 1's cold copy")
+    if error is None:
+        raise AssertionError(f"the save outlived the kill of {victim}: "
+                             "nothing was torn")
+    listed_torn = await mgr.list_steps()
+    if listed_torn != [1]:
+        raise AssertionError(f"while step 2 was torn the namespace listed "
+                             f"{listed_torn}")
+    puts_before = len(log.calls)
+    resumed_s = await retry_until("step-2 resume",
+                                  lambda: mgr.save(2, trees[2]), resume_s)
+    resume_puts = {s: sum(log.calls[puts_before:].count(p)
+                          for p in payloads[2, s]) for s in (0, 1)}
+    if resume_puts[0]:
+        raise AssertionError(
+            f"the resume put shard 0 again ({resume_puts[0]}x) although it "
+            "had landed before the kill")
+    steps = await mgr.list_steps()
+    if steps != [1, 2]:
+        raise AssertionError(
+            f"namespace lists {steps}, want [1, 2]: a torn or missing "
+            "checkpoint is visible")
+    restore_s = {s: (await restore_checked(mgr, s, kib, device))["seconds"]
+                 for s in steps}
+    return {"victim": victim, "blocks_kept_live": sum(
+                len(m["blocks"]) for m in metas.values()),
+            "interrupted": error is not None, "error": error,
+            "torn_s": torn_s, "listed_torn": listed_torn,
+            "baseline_s": baseline_s, "resume_s": resumed_s,
+            "resume_puts": resume_puts,
             "shards_skipped": mgr.stats["shards_skipped"],
             "degraded_shard_reads": mgr.stats["degraded_shard_reads"],
             "restore_s": restore_s}
@@ -650,9 +807,10 @@ async def settle_and_verify(mgr, attempted: int, published: set, *,
         raise AssertionError("no step published or resumable")
     restore_s = {}
     for s in listed:
-        restore_s[s] = await _settle(
+        restore_s[s] = (await _settle(
             f"ckpt restore step {s}",
-            lambda s=s: _restore_checked(mgr, s, kib, device), settle_s)
+            lambda s=s: restore_checked(mgr, s, kib, device),
+            settle_s))["seconds"]
     return {"listed": listed, "acked": sorted(published),
             "resumed": resume or None,
             "shards_skipped": mgr.stats["shards_skipped"],
@@ -673,6 +831,19 @@ def data_shard_holders(metas) -> collections.Counter:
             k = int(block.get("ec_data_shards") or 0)
             held.update(a for a in block["locations"][:k] if a)
     return held
+
+
+def data_shard_victims(metas, n: int = 2) -> tuple[list, int, dict]:
+    """The ``n`` chunkservers that hold the most data shards over the EC
+    blocks of ``metas`` (ties by address), how many of those blocks have
+    a data shard on one of them (each must be rebuilt once they die), and
+    every holder's count."""
+    held = data_shard_holders(metas)
+    victims = sorted(held, key=lambda a: (-held[a], a))[:n]
+    lost = sum(1 for meta in metas for block in meta["blocks"]
+               if set(block["locations"][:int(block["ec_data_shards"])])
+               & set(victims))
+    return victims, lost, dict(held)
 
 
 async def rebuild_after_kills(client, kill, *, base: str, kib: int, reader,
@@ -697,15 +868,10 @@ async def rebuild_after_kills(client, kill, *, base: str, kib: int, reader,
     manifest = await mgr.save(1, _trees(1, kib))
     metas = [await client.get_file_info(s["ec_path"])
              for s in manifest["shards"]]
-    held = data_shard_holders(metas)
-    victims = sorted(held, key=lambda a: (-held[a], a))[:2]
-    lost = sum(
-        1 for meta in metas for block in meta["blocks"]
-        if set(block["locations"][:int(block["ec_data_shards"])])
-        & set(victims))
+    victims, lost, held = data_shard_victims(metas)
     await _call(kill, victims)
     launches, rebuilt = gf_matmul_words.launches, reader.ec_rebuilds
-    restore_s = await _restore_checked(mgr, 1, kib, device)
+    restore_s = (await restore_checked(mgr, 1, kib, device))["seconds"]
     launches = gf_matmul_words.launches - launches
     rebuilt = reader.ec_rebuilds - rebuilt
     if rebuilt != lost:
@@ -717,4 +883,4 @@ async def rebuild_after_kills(client, kill, *, base: str, kib: int, reader,
             f"launched {launches} times")
     return {"blocks_lost_data": lost, "gf256_launches": launches,
             "rebuilt_blocks": rebuilt, "victims": victims,
-            "data_shards_held": dict(held), "restore_s": restore_s}
+            "data_shards_held": held, "restore_s": restore_s}

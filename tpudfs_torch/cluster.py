@@ -39,9 +39,9 @@ Raft state over the wire (the client's ``raft_state``).
 
 The Helm chart's deployment (``deploy/helm/tpudfs``) is
 :class:`HelmCluster`: three config servers in one Raft group, each
-bootstrap shard's masters as one Raft group, a spare group that a
-hot-prefix split takes, and chunkservers that find the masters through
-the config group's map. :func:`find_config_leader` and
+bootstrap shard's masters as one Raft group, spare groups that
+hot-prefix splits take (one each), and chunkservers that find the
+masters through the config group's map. :func:`find_config_leader` and
 :meth:`HelmCluster.kill_config` find and kill the config group's leader;
 :func:`wait_moved` and :func:`wait_redirect` wait out a split.
 
@@ -466,13 +466,16 @@ class _Deployment:
         self.client_tls = ClientTls(ca_path=self.pki["ca"])
 
     def _chunkserver_args(self, i: int, racks: int, masters: str,
-                          configs: str, heartbeat_s: float) -> list[str]:
+                          configs: str, heartbeat_s: float,
+                          scrub_s: float | None = 3600.0) -> list[str]:
+        """A chunkserver's flags; ``scrub_s`` None leaves the scrubber at
+        the chunkserver's own default (60 s)."""
+        scrub = [] if scrub_s is None else ["--scrub-interval", str(scrub_s)]
         return ["--port", "0", "--data-dir", str(self.root / f"cs{i}"),
                 "--masters", masters, "--config-servers", configs,
                 "--rack-id", f"rack-{i % racks}",
                 "--heartbeat-interval", str(heartbeat_s),
-                "--scrub-interval", "3600", "--http-port", "0",
-                *self._tls_args]
+                *scrub, "--http-port", "0", *self._tls_args]
 
     @property
     def chunkserver_env(self) -> dict:
@@ -751,22 +754,23 @@ class HelmCluster(_Deployment):
       ``--config-servers``, ``--split-threshold-rps`` at the chart's 100
       (``split_threshold_rps``; ``split_cooldown_s`` gives
       ``--split-cooldown-secs``, the masters' 30 s when None);
-    - one spare group of 3 masters (``spare0-m<i>``, ``--shard-id ""``,
-      ``--peers`` of each other), which the config group allocates whole
-      to a hot-prefix split;
+    - ``spares`` spare groups of 3 masters (``spare<g>-m<i>``,
+      ``--shard-id ""``, ``--peers`` of each other), each of which the
+      config group allocates whole to one hot-prefix split;
     - the chunkservers (``cs<i>``, rack ``rack-{i % 3}``, ``--masters ""``:
       they find every master in the config group's map), with the chart's
-      heartbeat, and its block cache unless ``cache_blocks`` says
-      otherwise.
+      heartbeat and scrubber, and its block cache unless ``cache_blocks``
+      says otherwise. ``scrub_interval_s`` gives ``--scrub-interval``: only
+      the CPU tests set it, so that the smoke's ``sharded`` phase at a
+      small size sees its flipped replica found within seconds.
 
     Departures from the chart, each forced (``departures``): the
     bootstrap shards name their masters (``shard=m1+m2+m3``) and each
     shard's masters boot as one group, where the chart boots every master
     as a spare singleton, which gives each shard three independent
-    1-voter groups; the spare group, which the chart's pool (shards x
-    masters) leaves out, so that a split has a group to take; the
-    scrubber held off for an hour; the ops HTTP endpoints off; no S3
-    gateway; one host and one disk.
+    1-voter groups; the spare groups, which the chart's pool (shards x
+    masters) leaves out, so that a split has a group to take; the ops
+    HTTP endpoints off; no S3 gateway; one host and one disk.
 
     Ready means: a config leader whose map names every bootstrap shard;
     every shard a leader and out of safe mode; each spare group a leader
@@ -781,8 +785,11 @@ class HelmCluster(_Deployment):
                  cache_blocks: int | None = HELM["block_cache_size"],
                  split_threshold_rps: float | None = None,
                  split_cooldown_s: float | None = None,
-                 shards: tuple = HELM["shards"]):
+                 shards: tuple = HELM["shards"], spares: int = 1,
+                 scrub_interval_s: float | None = None):
         super().__init__(root, tls=tls, cache_blocks=cache_blocks)
+        self.spares = spares
+        self.scrub_interval_s = scrub_interval_s
         #: ``(shard id, masters)`` of each bootstrap shard, in order.
         self.bootstrap = tuple(shards)
         self.n_cs = HELM["chunkservers"] if chunkservers is None \
@@ -795,8 +802,7 @@ class HelmCluster(_Deployment):
         #: The config servers' addresses, and name -> process.
         self.config_addrs: list[str] = []
         self.config_servers: dict[str, ServerProc] = {}
-        #: The spare group's masters' addresses (one group), in boot
-        #: order.
+        #: Each spare group's masters' addresses, in boot order.
         self.spare_groups: list[list[str]] = []
         #: The config group's map, as :meth:`refresh_shards` last read it.
         self.shard_map = None
@@ -806,8 +812,8 @@ class HelmCluster(_Deployment):
         out = ["each bootstrap shard names its 3 masters and they boot as "
                "one Raft group (the chart boots every master as a spare "
                "singleton: three 1-voter groups a shard)",
-               "a spare group of 3 masters beside the chart's pool of "
-               "shards x masters"]
+               f"spare groups of 3 masters ({self.spares}) beside the "
+               f"chart's pool of shards x masters"]
         if self.cache_blocks != HELM["block_cache_size"]:
             out.append(f"chunkserver block cache {self.cache_blocks} "
                        f"blocks, not the chart's "
@@ -824,9 +830,11 @@ class HelmCluster(_Deployment):
         if self.split_cooldown_s is not None:
             out.append(f"split cooldown {self.split_cooldown_s} s, not the "
                        f"masters' default 30")
-        out += ["the scrubber held off for an hour (the chart's 60 s "
-                "default)", "ops HTTP endpoints off (the chart's 8080 on "
-                "every server)", "no S3 gateway", "one host and one disk"]
+        if self.scrub_interval_s is not None:
+            out.append(f"scrubber every {self.scrub_interval_s} s, not the "
+                       f"chunkservers' default 60")
+        out += ["ops HTTP endpoints off (the chart's 8080 on every server)",
+                "no S3 gateway", "one host and one disk"]
         return out
 
     def _master_args(self, name: str, addr: str, peers, shard_id: str):
@@ -852,7 +860,7 @@ class HelmCluster(_Deployment):
         if not self.config_addrs:
             self.config_addrs = reserve(HELM["config_replicas"])
             self.shards = {sid: reserve(n) for sid, n in self.bootstrap}
-            self.spare_groups = [reserve(3)]
+            self.spare_groups = [reserve(3) for _ in range(self.spares)]
         bootstrap = ",".join(f"{sid}={'+'.join(addrs)}"
                              for sid, addrs in self.shards.items())
         out = {"config": [], "master": [], "spare": [], "chunkserver": []}
@@ -877,7 +885,7 @@ class HelmCluster(_Deployment):
         out["chunkserver"] = [
             (f"cs{i}", self._chunkserver_args(
                 i, HELM["racks"], "", ",".join(self.config_addrs),
-                HELM["heartbeat_interval_s"]))
+                HELM["heartbeat_interval_s"], self.scrub_interval_s))
             for i in range(self.n_cs)]
         return out
 
