@@ -1,0 +1,13 @@
+"""L1 reader under ``DfsInfeed``: the share of ``reader.block`` time in
+which the block had no child span open: queued for a worker thread or for
+the event loop."""
+
+from portbench import program_trace
+
+RECORDER = program_trace.recorder()
+
+
+def read(ctx):
+    if RECORDER is None:
+        return None
+    return program_trace.wait_share(RECORDER.items, ctx.window)

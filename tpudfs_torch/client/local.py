@@ -20,6 +20,7 @@ import asyncio
 import logging
 
 from tpudfs_torch.chunkserver.blockstore import BlockStore
+from tpudfs_torch.common import trace
 from tpudfs_torch.common.erasure import decode as ec_decode
 
 logger = logging.getLogger(__name__)
@@ -82,11 +83,16 @@ class LocalClient:
         store = await self._local_store(addr)
         if store is None:
             return None
+        read = store.read_verified if verify else store.read
+
+        def pread():
+            with trace.span("store.pread") as sp:
+                data = read(block_id, offset, length or None, into=into)
+                sp.nbytes = len(data)
+                return data
+
         try:
-            data = await asyncio.to_thread(
-                store.read_verified if verify else store.read,
-                block_id, offset, length or None, into=into,
-            )
+            data = await asyncio.to_thread(pread)
         except Exception as e:
             logger.debug("short-circuit read of %s via %s failed: %s",
                          block_id, addr, e)

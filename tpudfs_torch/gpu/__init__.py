@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpudfs_torch.common import trace
+
 
 def resolve_device(device: torch.device | str | None = None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means ``cuda:0``.
@@ -56,13 +58,21 @@ def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     the array's memory when the array is writable and contiguous (callers
     hand in a fresh buffer, never one they reuse); a frozen array (an
     lru-cached table) is copied first. uint32 travels as int32 and is
-    viewed back on arrival: a same-size view, no conversion."""
+    viewed back on arrival: a same-size view, no conversion.
+
+    Every upload of the read path comes through here: the ``reader.h2d``
+    span and the ``h2d.pinned_bytes`` / ``h2d.pageable_bytes`` counters
+    (by the source's :meth:`torch.Tensor.is_pinned`, on every device)."""
     arr = np.asarray(arr)
     if not arr.flags.writeable or not arr.flags.c_contiguous:
         arr = np.array(arr, order="C")
-    if arr.dtype == np.uint32:
-        return torch.from_numpy(arr.view(np.int32)).to(device).view(torch.uint32)
-    return torch.from_numpy(arr).to(device)
+    u32 = arr.dtype == np.uint32
+    src = torch.from_numpy(arr.view(np.int32) if u32 else arr)
+    with trace.span("reader.h2d", src.nbytes):
+        trace.count("h2d.pinned_bytes" if src.is_pinned()
+                    else "h2d.pageable_bytes", src.nbytes)
+        out = src.to(device)
+    return out.view(torch.uint32) if u32 else out
 
 
 # --- uint32 helpers --------------------------------------------------------

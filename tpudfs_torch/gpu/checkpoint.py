@@ -73,9 +73,9 @@ from tpudfs_torch.client.local import (
     is_dfs_error,
     is_error_named,
 )
-from tpudfs_torch.common import ckptpaths, resilience
+from tpudfs_torch.common import ckptpaths, resilience, trace
 from tpudfs_torch.common.checksum import crc32c, crc32c_combine
-from tpudfs_torch.gpu import resolve_device
+from tpudfs_torch.gpu import host_to_device, resolve_device
 from tpudfs_torch.gpu.hbm_reader import device_array_to_bytes
 
 logger = logging.getLogger(__name__)
@@ -259,11 +259,6 @@ def _validate_manifest(body: bytes) -> dict:
 # ------------------------------------------------------------ device restore
 
 
-def _add(stage_s: dict | None, key: str, seconds: float) -> None:
-    if stage_s is not None:
-        stage_s[key] = stage_s.get(key, 0.0) + seconds
-
-
 async def restore_shard_device(reader, client, spec: dict, device,
                                stats: dict, *,
                                stage_s: dict | None = None) -> dict:
@@ -278,82 +273,84 @@ async def restore_shard_device(reader, client, spec: dict, device,
     the concatenated word stream; every other dtype bounces through the
     host with its own CRC check.
 
-    ``stage_s`` (optional) accumulates wall seconds: ``read`` (blocks into
-    device memory, verified; failed attempts included), ``combined_crc``,
-    ``assemble`` (concatenation and views) and ``bounce``, which is
-    ``bounce_copy`` (device to host, the host copy, the upload) plus
-    ``bounce_crc`` (the tensors' host CRCs)."""
+    ``stage_s`` (optional) accumulates wall seconds, each the span of its
+    name under ``restore.``: ``read`` (blocks into device memory,
+    verified; failed attempts included), ``combined_crc``, ``assemble``
+    (concatenation and views) and ``bounce``, which is ``bounce_copy``
+    (device to host, the host copy, the upload) plus ``bounce_crc`` (the
+    tensors' host CRCs)."""
     device = resolve_device(device)
-    clock = time.perf_counter
+    if stage_s is not None:
+        for key in ("read", "combined_crc", "assemble", "bounce",
+                    "bounce_copy", "bounce_crc"):
+            stage_s.setdefault(key, 0.0)
     sources = [p for p in (spec.get("path"), spec.get("ec_path"))
                if p is not None]
     blocks = None
-    last: Exception | None = None
+    # The failed copy's message, not its exception: the exception's
+    # traceback holds this frame, and with it every tensor restored here,
+    # until the cyclic collector runs.
+    failed: str | None = None
     for i, path in enumerate(sources):
         if i > 0:
             stats["degraded_shard_reads"] += 1
             logger.warning(
                 "shard %s: hot copy unreadable in the device path (%s); "
                 "reconstructing from EC cold copy %s",
-                spec["shard"], last, path)
-        t0 = clock()
+                spec["shard"], failed, path)
         try:
-            blocks = await reader.read_file_to_device_blocks(path, verify=True)
-            t1 = clock()
-            _add(stage_s, "read", t1 - t0)
-            await _check_combined_crc(client, path, spec)
-            _add(stage_s, "combined_crc", clock() - t1)
+            async with trace.span("restore.read", stages=stage_s):
+                blocks = await reader.read_file_to_device_blocks(
+                    path, verify=True)
+            async with trace.span("restore.combined_crc", stages=stage_s):
+                await _check_combined_crc(client, path, spec)
             break
         except Exception as e:
             if not _is_read_error(e):
                 raise
-            _add(stage_s, "read", clock() - t0)
-            blocks, last = None, e
+            blocks, failed = None, str(e)
     if blocks is None:
         raise DegradedRestoreError(
             f"shard {spec['shard']} unrestorable into device memory: every "
-            f"copy failed ({last})")
+            f"copy failed ({failed})")
     if any(b.size % _ALIGN for b in blocks[:-1]):
         # The word stream is sliced by payload offset, which is only sound
         # when every block but the last is whole 512-byte chunks.
         raise ValueError(
             f"shard {spec['shard']}: block sizes must be multiples of "
             f"{_ALIGN} for a device restore")
-    t0 = clock()
-    flat = [b.array.view(torch.int32).reshape(-1).to(device) for b in blocks]
-    words = flat[0] if len(flat) == 1 else torch.cat(flat)
-    out: dict[str, torch.Tensor] = {}
-    bounce = []
-    for t in spec["tensors"]:
-        dt = torch_dtype(t["dtype"])
-        lo = t["offset"] // 4
-        if dt.itemsize == 4 and t["size"] % 4 == 0:
-            out[t["name"]] = words[lo:lo + t["size"] // 4].view(dt) \
+    with trace.span("restore.assemble", stages=stage_s):
+        flat = [b.array.view(torch.int32).reshape(-1).to(device)
+                for b in blocks]
+        words = flat[0] if len(flat) == 1 else torch.cat(flat)
+        out: dict[str, torch.Tensor] = {}
+        bounce = []
+        for t in spec["tensors"]:
+            dt = torch_dtype(t["dtype"])
+            lo = t["offset"] // 4
+            if dt.itemsize == 4 and t["size"] % 4 == 0:
+                out[t["name"]] = words[lo:lo + t["size"] // 4].view(dt) \
+                    .reshape(t["shape"])
+            else:
+                bounce.append((t, dt))
+    with trace.span("restore.bounce", stages=stage_s) as sp:
+        for t, dt in bounce:
+            # Not a whole number of 32-bit words (bf16 weights among them):
+            # through the host, checked by the tensor's own CRC.
+            sp.phase("restore.bounce_copy")
+            lo = t["offset"] // 4
+            raw = device_array_to_bytes(
+                words[lo:lo + _align(t["size"]) // 4], t["size"])
+            sp.phase("restore.bounce_crc")
+            if crc32c(raw) != t["crc32c"]:
+                raise ChecksumMismatchError(
+                    f"tensor {t['name']!r} failed CRC on host bounce")
+            sp.phase("restore.bounce_copy")
+            # From the raw bits: numpy has no bf16, and a void array is no
+            # tensor.
+            bits = np.frombuffer(bytearray(raw), dtype=np.uint8)
+            out[t["name"]] = host_to_device(bits, device).view(dt) \
                 .reshape(t["shape"])
-        else:
-            bounce.append((t, dt))
-    t1 = clock()
-    _add(stage_s, "assemble", t1 - t0)
-    crc_s = 0.0
-    for t, dt in bounce:
-        # Not a whole number of 32-bit words (bf16 weights among them):
-        # through the host, checked by the tensor's own CRC.
-        lo = t["offset"] // 4
-        raw = device_array_to_bytes(words[lo:lo + _align(t["size"]) // 4],
-                                    t["size"])
-        t2 = clock()
-        if crc32c(raw) != t["crc32c"]:
-            raise ChecksumMismatchError(
-                f"tensor {t['name']!r} failed CRC on host bounce")
-        crc_s += clock() - t2
-        # From the raw bits: numpy has no bf16, and a void array is no
-        # tensor.
-        bits = torch.from_numpy(np.frombuffer(bytearray(raw), dtype=np.uint8))
-        out[t["name"]] = bits.view(dt).reshape(t["shape"]).to(device)
-    bounce_s = clock() - t1
-    _add(stage_s, "bounce", bounce_s)
-    _add(stage_s, "bounce_copy", bounce_s - crc_s)
-    _add(stage_s, "bounce_crc", crc_s)
     return {t["name"]: out[t["name"]] for t in spec["tensors"]}
 
 

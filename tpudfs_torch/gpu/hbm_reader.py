@@ -9,7 +9,10 @@ per-512-byte-chunk CRCs and their GF(2) combine-fold), with no host
 readback. Under ``verify="lazy"`` every block's verdict stays on the device
 until :meth:`HbmReader.confirm` settles them all with one device→host copy.
 A degraded erasure-coded block is rebuilt on the device with kernel 2
-(``gf256.cu``).
+(``gf256.cu``). Spans (``tpudfs_torch.common.trace``): ``reader.block``
+around a block, ``reader.grid`` around the grid's allocation,
+``reader.verify`` around the check, ``ec.stack``, ``ec.upload`` and
+``ec.decode`` around an erasure-coded block's host side.
 
 Batched paths: with ``batch_reads > 0`` lazily verified blocks go through
 the read combiner (``read_combiner.py``: one native pread, one copy from a
@@ -27,13 +30,12 @@ from __future__ import annotations
 import asyncio
 import ctypes
 import logging
-import time
 
 import numpy as np
 import torch
 
 from tpudfs_torch.client.local import ChecksumMismatchError, DfsError, is_dfs_error
-from tpudfs_torch.common import native
+from tpudfs_torch.common import native, trace
 from tpudfs_torch.common.checksum import (
     CHECKSUM_CHUNK_SIZE,
     crc32c,
@@ -139,7 +141,7 @@ class HbmReader:
         #: sweeps: waiting for the producer to fill a round
         #: (``producer_wait``), enqueueing its copy (``copy``), waiting for
         #: a recycled slot's copy to complete (``slot_wait``), and the
-        #: per-block fallbacks (``fallback``).
+        #: per-block fallbacks (``fallback``): the spans ``sweep.<key>``.
         self.sweep_stage_s = dict.fromkeys(
             ("producer_wait", "copy", "slot_wait", "fallback"), 0.0)
 
@@ -179,32 +181,37 @@ class HbmReader:
 
         ``safe_local``: force the host-verified short-circuit path (used by
         the corruption retry; normally the on-device check subsumes it)."""
-        if not safe_local:
-            db = await self._try_batched(block, device, verify)
-            if db is not None:
-                return db
-        try:
-            db = await self._read_block_inner(block, device, verify,
-                                              safe_local)
-        except ChecksumMismatchError:
-            # The fast path trusts the device CRC end to end; a mismatch may
-            # be a corrupt LOCAL replica that the host-verified path would
-            # have skipped. Retry once through that path.
-            if safe_local:
-                raise
-            self.rereads += 1
+        async with trace.span("reader.block") as sp:
+            if not safe_local:
+                db = await self._try_batched(block, device, verify)
+                if db is not None:
+                    sp.nbytes = db.size
+                    return db
             try:
-                db = await self._read_block_inner(block, device, verify, True)
-            except Exception as e2:
-                if not is_dfs_error(e2):
+                db = await self._read_block_inner(block, device, verify,
+                                                  safe_local)
+            except ChecksumMismatchError:
+                # The fast path trusts the device CRC end to end; a mismatch
+                # may be a corrupt LOCAL replica that the host-verified path
+                # would have skipped. Retry once through that path.
+                if safe_local:
                     raise
-                raise DfsError(
-                    f"on-device checksum mismatch for block "
-                    f"{block['block_id']} (verified-path retry failed: {e2})"
-                ) from None
-        db.source = block
-        db.device = device
-        return db
+                self.rereads += 1
+                try:
+                    db = await self._read_block_inner(block, device, verify,
+                                                      True)
+                except Exception as e2:
+                    if not is_dfs_error(e2):
+                        raise
+                    raise DfsError(
+                        f"on-device checksum mismatch for block "
+                        f"{block['block_id']} (verified-path retry failed: "
+                        f"{e2})"
+                    ) from None
+            db.source = block
+            db.device = device
+            sp.nbytes = db.size
+            return db
 
     async def _read_block_inner(self, block: dict, device,
                                 verify: bool | str,
@@ -221,10 +228,11 @@ class HbmReader:
         def _grid(nbytes: int) -> np.ndarray:
             # Chunk-padded grid the bytes land in: the returned view's
             # .base is the padded array, so no pad-copy is needed after.
-            pad = -nbytes % CHECKSUM_CHUNK_SIZE
-            arr = np.zeros(max(nbytes + pad, CHECKSUM_CHUNK_SIZE),
-                           dtype=np.uint8)
-            return arr[:nbytes]
+            with trace.span("reader.grid"):
+                pad = -nbytes % CHECKSUM_CHUNK_SIZE
+                arr = np.zeros(max(nbytes + pad, CHECKSUM_CHUNK_SIZE),
+                               dtype=np.uint8)
+                return arr[:nbytes]
 
         data = await self.client._read_block_range(
             block, 0, 0, local_verify=safe_local or not device_verify,
@@ -257,19 +265,21 @@ class HbmReader:
         )
         if all(s is not None for s in shards[:k]):
             def _assemble():
-                need = -(-max(size, 1) // CHECKSUM_CHUNK_SIZE) \
-                    * CHECKSUM_CHUNK_SIZE
-                buf = np.zeros(need, dtype=np.uint8)
-                off = 0
-                for s in shards[:k]:
-                    take = min(len(s), size - off)
-                    if take <= 0:
-                        break
-                    buf[off : off + take] = \
-                        np.frombuffer(s, dtype=np.uint8, count=take)
-                    off += take
-                return host_to_device(
-                    buf.view("<u4").reshape(-1, WORDS_PER_CHUNK), device)
+                with trace.span("ec.stack"):
+                    need = -(-max(size, 1) // CHECKSUM_CHUNK_SIZE) \
+                        * CHECKSUM_CHUNK_SIZE
+                    buf = np.zeros(need, dtype=np.uint8)
+                    off = 0
+                    for s in shards[:k]:
+                        take = min(len(s), size - off)
+                        if take <= 0:
+                            break
+                        buf[off : off + take] = \
+                            np.frombuffer(s, dtype=np.uint8, count=take)
+                        off += take
+                with trace.span("ec.upload"):
+                    return host_to_device(
+                        buf.view("<u4").reshape(-1, WORDS_PER_CHUNK), device)
 
             return await asyncio.to_thread(_assemble), size
         present = tuple(i for i, s in enumerate(shards) if s is not None)
@@ -280,26 +290,32 @@ class HbmReader:
             )
         use = present[:k]
         slen = len(shards[use[0]])
-        stack = np.zeros((k, pad_shard_len(slen)), dtype=np.uint8)
-        for r, idx in enumerate(use):
-            row = np.frombuffer(shards[idx], dtype=np.uint8)
-            if len(row) != slen:
-                raise ChecksumMismatchError(
-                    f"EC block {block['block_id']}: shard length mismatch"
-                )
-            stack[r, :slen] = row
+        with trace.span("ec.stack"):
+            stack = np.zeros((k, pad_shard_len(slen)), dtype=np.uint8)
+            for r, idx in enumerate(use):
+                row = np.frombuffer(shards[idx], dtype=np.uint8)
+                if len(row) != slen:
+                    raise ChecksumMismatchError(
+                        f"EC block {block['block_id']}: shard length mismatch"
+                    )
+                stack[r, :slen] = row
 
         def reconstruct():
-            avail = torch.from_numpy(stack).to(device)
-            recon = rs_decode_device(avail, k, m, use)  # (k, padded)
-            nchunks = -(-size // CHECKSUM_CHUNK_SIZE) or 1
-            need = nchunks * CHECKSUM_CHUNK_SIZE
-            flat = recon[:, :slen].reshape(-1)
-            if flat.shape[0] < need:
-                flat = torch.cat([flat, flat.new_zeros(need - flat.shape[0])])
-            # Shard zero-padding means flat[size:] is zeros, so the slice
-            # to the chunk grid is exact (bytes_to_words pads the same way).
-            return flat[:need].view(torch.uint32).view(nchunks, WORDS_PER_CHUNK)
+            with trace.span("ec.upload"):
+                avail = host_to_device(stack, device)
+            with trace.span("ec.decode"):
+                recon = rs_decode_device(avail, k, m, use)  # (k, padded)
+                nchunks = -(-size // CHECKSUM_CHUNK_SIZE) or 1
+                need = nchunks * CHECKSUM_CHUNK_SIZE
+                flat = recon[:, :slen].reshape(-1)
+                if flat.shape[0] < need:
+                    flat = torch.cat(
+                        [flat, flat.new_zeros(need - flat.shape[0])])
+                # Shard zero-padding means flat[size:] is zeros, so the
+                # slice to the chunk grid is exact (bytes_to_words pads the
+                # same way).
+                return flat[:need].view(torch.uint32).view(nchunks,
+                                                           WORDS_PER_CHUNK)
 
         words = await asyncio.to_thread(reconstruct)
         self.ec_rebuilds += 1
@@ -314,24 +330,26 @@ class HbmReader:
         expected: int | None = None
         if verify and block.get("checksum_crc32c"):
             expected = int(block["checksum_crc32c"])
-            if size % CHECKSUM_CHUNK_SIZE == 0:
-                # Device fold: whole-block CRC with no chunk readback;
-                # compared on the host.
-                crc = block_crc_device(words)
-                if verify == "lazy":
-                    pending = crc
+            async with trace.span("reader.verify"):
+                if size % CHECKSUM_CHUNK_SIZE == 0:
+                    # Device fold: whole-block CRC with no chunk readback;
+                    # compared on the host.
+                    crc = block_crc_device(words)
+                    if verify == "lazy":
+                        pending = crc
+                    else:
+                        got = await asyncio.to_thread(
+                            lambda: int(u32_to_numpy(crc.reshape(1))[0]))
+                        verified = got == expected
                 else:
-                    got = await asyncio.to_thread(
-                        lambda: int(u32_to_numpy(crc.reshape(1))[0]))
-                    verified = got == expected
-            else:
-                # The tail chunk was zero-padded on the device, so the fold
-                # diverges from the stored CRC: rebuild the tail on the
-                # host. Eager even under "lazy" (nothing to defer), so it
-                # must raise here: confirm() only inspects pending_crc.
-                verified = await asyncio.to_thread(
-                    self._verify_host_tail_block, words, size, expected
-                )
+                    # The tail chunk was zero-padded on the device, so the
+                    # fold diverges from the stored CRC: rebuild the tail
+                    # on the host. Eager even under "lazy" (nothing to
+                    # defer), so it must raise here: confirm() only
+                    # inspects pending_crc.
+                    verified = await asyncio.to_thread(
+                        self._verify_host_tail_block, words, size, expected
+                    )
             if pending is None and not verified:
                 raise ChecksumMismatchError(
                     f"on-device checksum mismatch for block {block['block_id']}"
@@ -576,33 +594,33 @@ class HbmReader:
             try:
                 stage = self.sweep_stage_s
                 for r in range(nrounds):
-                    t0 = time.perf_counter()
                     if r >= ring:
                         # The recycled slot's copy must have COMPLETED
                         # before the producer refills it.
-                        await asyncio.to_thread(wait_events,
-                                                [copied[r - ring]])
-                        lib.tpudfs_sweep_release(handle, r - ring)
-                    t1 = time.perf_counter()
-                    nblk = await asyncio.to_thread(
-                        lib.tpudfs_sweep_wait, handle, r)
-                    t2 = time.perf_counter()
-                    stage["slot_wait"] += t1 - t0
-                    stage["producer_wait"] += t2 - t1
+                        async with trace.span("sweep.slot_wait",
+                                              stages=stage):
+                            await asyncio.to_thread(wait_events,
+                                                    [copied[r - ring]])
+                            lib.tpudfs_sweep_release(handle, r - ring)
+                    async with trace.span("sweep.producer_wait",
+                                          stages=stage):
+                        nblk = await asyncio.to_thread(
+                            lib.tpudfs_sweep_wait, handle, r)
                     if nblk < 0:
                         break
-                    lo = r * round_blocks
-                    hi = lo + nblk
-                    ok = (sizes[lo:hi] == exp_sizes[lo:hi]) \
-                        & (crcs[lo:hi] == exp_crcs[lo:hi])
-                    rows = buf_words[r % ring][: nblk * spb]
-                    if on_card:
-                        words = rows.to(device, non_blocking=True)
-                        copied[r] = torch.cuda.Event()
-                        copied[r].record(torch.cuda.current_stream(device))
-                    else:
-                        words = rows.clone()
-                    stage["copy"] += time.perf_counter() - t2
+                    with trace.span("sweep.copy", stages=stage):
+                        lo = r * round_blocks
+                        hi = lo + nblk
+                        ok = (sizes[lo:hi] == exp_sizes[lo:hi]) \
+                            & (crcs[lo:hi] == exp_crcs[lo:hi])
+                        rows = buf_words[r % ring][: nblk * spb]
+                        if on_card:
+                            words = rows.to(device, non_blocking=True)
+                            copied[r] = torch.cuda.Event()
+                            copied[r].record(
+                                torch.cuda.current_stream(device))
+                        else:
+                            words = rows.clone()
                     batch = DeviceBatch(words=words.view(torch.uint32),
                                         crcs=None, cpb=spb, nblocks=nblk)
                     for j in range(nblk):
@@ -632,9 +650,9 @@ class HbmReader:
                 results[eidx] = await self.read_block_to_device(
                     block, device, verify=True)
 
-            t0 = time.perf_counter()
-            await asyncio.gather(*(fb(i) for i in fallback_idx))
-            self.sweep_stage_s["fallback"] += time.perf_counter() - t0
+            async with trace.span("sweep.fallback",
+                                  stages=self.sweep_stage_s):
+                await asyncio.gather(*(fb(i) for i in fallback_idx))
         return results
 
     async def sweep_paths_to_device(self, paths: list[str], device=None, *,

@@ -6,6 +6,10 @@ An async prefetcher pulls files from the DFS through :class:`HbmReader`
 typically a training step, works on the previous file. A synchronous
 iterator bridges into ordinary training loops by running the asyncio
 machinery on a background thread.
+
+Spans: ``infeed.file`` (the producer reading one file), ``infeed.put_wait``
+(the producer blocked on a full queue), ``infeed.get_wait`` (the
+synchronous consumer blocked on an empty one).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from collections.abc import Iterator, Sequence
 
 import torch
 
+from tpudfs_torch.common import trace
 from tpudfs_torch.gpu.hbm_reader import DeviceBlock, HbmReader
 
 
@@ -38,10 +43,13 @@ class DfsInfeed:
         async def producer():
             try:
                 for path in self.paths:
-                    blocks = await self.reader.read_file_to_device_blocks(
-                        path, verify=self.verify
-                    )
-                    await pending.put((path, blocks))
+                    async with trace.span("infeed.file") as sp:
+                        blocks = await self.reader.read_file_to_device_blocks(
+                            path, verify=self.verify
+                        )
+                        sp.nbytes = sum(b.size for b in blocks)
+                    async with trace.span("infeed.put_wait"):
+                        await pending.put((path, blocks))
                 await pending.put(None)
             except asyncio.CancelledError:
                 # Consumer gone (early exit cancelled us): nobody drains the
@@ -78,12 +86,13 @@ class DfsInfeed:
                 async for item in self.__aiter__():
                     # Bounded put with a stop check, so an abandoned
                     # consumer does not pin this thread (and its blocks).
-                    while not stop.is_set():
-                        try:
-                            out.put(item, timeout=0.25)
-                            break
-                        except queue.Full:
-                            continue
+                    with trace.span("infeed.put_wait"):
+                        while not stop.is_set():
+                            try:
+                                out.put(item, timeout=0.25)
+                                break
+                            except queue.Full:
+                                continue
                     if stop.is_set():
                         return
 
@@ -97,7 +106,8 @@ class DfsInfeed:
         threading.Thread(target=runner, daemon=True).start()
         try:
             while True:
-                item = out.get()
+                with trace.span("infeed.get_wait"):
+                    item = out.get()
                 if item is _SENTINEL:
                     return
                 if isinstance(item, BaseException):

@@ -34,14 +34,13 @@ from __future__ import annotations
 
 import asyncio
 import logging
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from tpudfs_torch.client.local import is_error_named
-from tpudfs_torch.common import native
+from tpudfs_torch.common import native, trace
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c
 from tpudfs_torch.gpu import device_constant, resolve_device
 from tpudfs_torch.gpu.crc32c_cuda import (
@@ -132,7 +131,8 @@ class ReadCombiner:
         #: (``alloc``), the native pread (``pread``, worker thread), the
         #: copy + CRC enqueue (``upload``, worker thread) and the waits for
         #: copies to complete before a buffer is pooled again
-        #: (``copy_wait``). The stages overlap; the sums are not additive.
+        #: (``copy_wait``), failed rounds included: the spans
+        #: ``combiner.<key>``. The stages overlap; the sums are not additive.
         self.stage_s = dict.fromkeys(("alloc", "pread", "upload",
                                       "copy_wait"), 0.0)
 
@@ -149,10 +149,8 @@ class ReadCombiner:
         free = self._buf_pool.get(nrows)
         if free:
             return free.pop()
-        t0 = time.perf_counter()
-        buf = self._alloc_round_buf(nrows)
-        self.stage_s["alloc"] += time.perf_counter() - t0
-        return buf
+        with trace.span("combiner.alloc", stages=self.stage_s):
+            return self._alloc_round_buf(nrows)
 
     def _put_buf(self, buf: torch.Tensor | None) -> None:
         if buf is None:
@@ -243,14 +241,15 @@ class ReadCombiner:
                     r for r in self._pending if id(r) not in taken
                 ]
                 buf = self._get_buf(len(reqs) * cpb)
-                t0 = time.perf_counter()
                 try:
-                    if origin is not None:
-                        ok, crcs = await self._fetch_remote(reqs, buf)
-                    else:
-                        ok, crcs = await asyncio.to_thread(
-                            self._fill_buffer, reqs, buf
-                        )
+                    async with trace.span("combiner.pread",
+                                          stages=self.stage_s):
+                        if origin is not None:
+                            ok, crcs = await self._fetch_remote(reqs, buf)
+                        else:
+                            ok, crcs = await asyncio.to_thread(
+                                self._fill_buffer, reqs, buf
+                            )
                 except asyncio.CancelledError:
                     self._put_buf(buf)
                     self._fail_out(reqs)
@@ -265,7 +264,6 @@ class ReadCombiner:
                         if not r.fut.done():
                             r.fut.set_result(_FALLBACK)
                     continue
-                self.stage_s["pread"] += time.perf_counter() - t0
                 if crcs is not None:
                     # Host-verified round: a mismatch is a corrupt replica;
                     # the general path's verified retry excludes it.
@@ -472,15 +470,15 @@ class ReadCombiner:
                 return
             reqs, rows, cpb, host_verified, release = item
             try:
-                t0 = time.perf_counter()
-                words, crcs, done = await asyncio.to_thread(
-                    self._upload, rows, len(reqs), host_verified)
-                t1 = time.perf_counter()
-                self.stage_s["upload"] += t1 - t0
+                async with trace.span("combiner.upload",
+                                      stages=self.stage_s):
+                    words, crcs, done = await asyncio.to_thread(
+                        self._upload, rows, len(reqs), host_verified)
                 if release is not None and not skip_next_release:
-                    await asyncio.to_thread(wait_events,
-                                            since_release + [done])
-                    self.stage_s["copy_wait"] += time.perf_counter() - t1
+                    async with trace.span("combiner.copy_wait",
+                                          stages=self.stage_s):
+                        await asyncio.to_thread(wait_events,
+                                                since_release + [done])
             except asyncio.CancelledError:
                 self._fail_out(reqs)
                 raise

@@ -32,22 +32,22 @@ expected CRCs are the zero-chunk CRC, so the device verify stays uniform).
 per-chunk CRC of every slot, the native CRC) runs on a worker thread, as do
 the host→device copies, the replicate launches, the one sync of the ack
 count and every device→host drain. ``stage_s`` accumulates the wall seconds
-of each step: ``stage``, ``h2d``, ``replicate`` (hops + verify launches,
-enqueued), ``acks`` (the one sync), ``drain``, ``persist``.
+of each step (the spans ``write_group.<step>``): ``stage``, ``h2d``,
+``replicate`` (hops + verify launches, enqueued), ``acks`` (the one sync),
+``drain``, ``persist``.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
-import time
 import types
 from dataclasses import dataclass
 
 import numpy as np
 
 from tpudfs_torch.chunkserver.ici_member import try_ici_write
-from tpudfs_torch.common import native
+from tpudfs_torch.common import native, trace
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c_plain
 from tpudfs_torch.gpu import host_to_device, u32_to_numpy
 from tpudfs_torch.gpu.crc32c_cuda import WORDS_PER_CHUNK
@@ -288,11 +288,8 @@ class IciWriteGroup:
     async def _timed(self, step: str, fn):
         """``fn()`` on a worker thread, its wall seconds added to
         ``stage_s[step]``."""
-        t0 = time.perf_counter()
-        try:
+        async with trace.span(f"write_group.{step}", stages=self.stage_s):
             return await asyncio.to_thread(fn)
-        finally:
-            self.stage_s[step] += time.perf_counter() - t0
 
     def _stage(self, C: int, cpb: int, per_pos) -> tuple[list, list]:
         """Per position: (C, 128) words with each block at its slot, and
@@ -398,11 +395,8 @@ class IciWriteGroup:
                 pend.block_id, data, pend.master_term, pend.master_shard)
             return (src, pend.block_id, r, ok)
 
-        t0 = time.perf_counter()
-        try:
+        async with trace.span("write_group.persist", stages=self.stage_s):
             results = await asyncio.gather(*(persist(j) for j in jobs))
-        finally:
-            self.stage_s["persist"] += time.perf_counter() - t0
         for src, bid, r, ok in results:
             if ok:
                 written[(src, bid)] = written.get((src, bid), 0) + 1
