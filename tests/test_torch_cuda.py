@@ -498,6 +498,44 @@ def test_restore_shard_device_on_card_matches_cpu(cuda_device, tmp_path,
                                want.reshape(-1).view(torch.uint8)), name
 
 
+def test_restore_lands_blocks_through_pinned_slots_on_card(cuda_device,
+                                                           tmp_path):
+    """Two healthy restores into ``cuda:0`` in a row, the second landing in
+    the slots the first gave back: each uploads every block from the
+    reader's pinned slots (its padded bytes in ``h2d.pinned_bytes``) and
+    only the host bounces from pageable memory, bit-exact; the pool holds
+    no slot taken afterwards."""
+    from tpudfs_torch.common import trace
+    from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE
+    from tpudfs_torch.gpu.checkpoint import restore_shard_device, torch_dtype
+
+    client, spec, tree, metas = _shard_layout(tmp_path, seed=63)
+    _restore(client, spec, cuda_device)  # the kernels' tables: uploaded once
+    reader = HbmReader(client, [cuda_device])
+    blocks = sum(-(-b["size"] // CHECKSUM_CHUNK_SIZE) * CHECKSUM_CHUNK_SIZE
+                 for b in metas["/c/hot"]["blocks"])
+    bounce = sum(t["size"] for t in spec["tensors"]
+                 if torch_dtype(t["dtype"]).itemsize != 4 or t["size"] % 4)
+    for _ in range(2):
+        before = trace.counts()
+        out = asyncio.run(restore_shard_device(
+            reader, client, spec, cuda_device, {"degraded_shard_reads": 0}))
+        torch.cuda.synchronize(cuda_device)
+        after = trace.counts()
+        moved = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in ("h2d.pinned_bytes", "h2d.pageable_bytes")}
+        assert moved == {"h2d.pinned_bytes": blocks,
+                         "h2d.pageable_bytes": bounce}
+        for name, want in tree.items():
+            got = out[name]
+            assert got.device == cuda_device and got.dtype == want.dtype
+            assert torch.equal(got.cpu().reshape(-1).view(torch.uint8),
+                               want.reshape(-1).view(torch.uint8)), name
+    pool = reader._pools[cuda_device]
+    assert pool.pinned and pool.held == sum(
+        s.nbytes for free in pool._free.values() for s in free)
+
+
 def test_restore_bounce_crc_runs_the_native_engine_on_card(cuda_device,
                                                           tmp_path):
     """A bf16 tensor's host bounce into ``cuda:0`` is checked by the native

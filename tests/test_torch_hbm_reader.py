@@ -4,7 +4,14 @@ reference ``tpudfs.tpu.hbm_reader.HbmReader``, both reading the same files
 through the same real ``tpudfs.client.Client`` on an in-process
 ``MiniCluster``: bytes, ``verified`` flags and lazily confirmed CRCs must
 agree exactly. Also the short-circuit ``LocalClient`` over block stores
-written by one package and read by the other."""
+written by one package and read by the other, and the per-block path's
+landing slots (``SlotPool``): reused under few workers and two event
+loops without a deadlock or an aliased block, and given back on every
+failure path."""
+
+import asyncio
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -20,6 +27,7 @@ from tpudfs.common.checksum import crc32c
 from tpudfs.tpu import hbm_reader as ref
 from tpudfs_torch.chunkserver.blockstore import BlockCorruptionError, BlockStore
 from tpudfs_torch.client.local import DfsError, LocalClient
+from tpudfs_torch.common import layout, trace
 from tpudfs_torch.gpu import hbm_reader as port
 from tpudfs_torch.gpu import u32_to_numpy
 
@@ -344,3 +352,242 @@ async def test_local_client_reads_reference_written_stores(tmp_path):
     assert _port_bytes(got["/r/ec"]) == ecdata
     with pytest.raises(DfsError, match="file not found"):
         await reader.read_file_to_device_blocks("/r/none")
+
+
+# ------------------------------------------- the per-block landing slots
+
+SLOT_BLOCK = 8 * 512
+
+
+def _slot_layout(tmp_path, files):
+    """``files`` ((path, size) pairs) of SLOT_BLOCK blocks at 3x on three
+    local stores: the client, the stores' handles, the metadata and each
+    file's bytes."""
+    addrs, paths, handles = layout.stores(tmp_path, 3)
+    metas, datas = {}, {}
+    for i, (path, size) in enumerate(files):
+        data = np.frombuffer(_rand(size, seed=40 + i), dtype=np.uint8)
+        metas[path] = layout.write_replicated(handles, addrs, path, data,
+                                              SLOT_BLOCK)
+        datas[path] = data.tobytes()
+    return LocalClient(paths, metas), handles, metas, datas
+
+
+def _taken(pool) -> int:
+    """Bytes of the pool's slots taken and not given back."""
+    return pool.held - sum(s.nbytes for free in pool._free.values()
+                           for s in free)
+
+
+@pytest.mark.parametrize("verify", [True, "lazy"])
+def test_slots_reused_under_few_workers_without_deadlock(tmp_path,
+                                                         monkeypatch, verify):
+    """17 blocks in flight at once on a loop with 2 workers and a pool of
+    3 slots (a tail block's smaller slot among them): the read completes,
+    every block equals its source once all have landed, blocks waited for
+    slots, and the pool never held more than its budget."""
+    monkeypatch.setattr(port, "SLOT_BUDGET", 3 * SLOT_BLOCK)
+    client, _handles, metas, datas = _slot_layout(
+        tmp_path, [("/s/a", 10 * SLOT_BLOCK), ("/s/b", 6 * SLOT_BLOCK + 100)])
+    reader = port.HbmReader(client, [CPU])
+    waits = trace.counts().get("reader.slot_waits", 0)
+
+    async def read_all():
+        got = await asyncio.gather(*(
+            reader.read_file_to_device_blocks(p, verify=verify)
+            for p in metas))
+        await reader.confirm([b for blocks in got for b in blocks])
+        return got
+
+    loop = asyncio.new_event_loop()
+    loop.set_default_executor(ThreadPoolExecutor(2))
+    try:
+        got = loop.run_until_complete(asyncio.wait_for(read_all(), 60))
+    finally:
+        loop.run_until_complete(loop.shutdown_default_executor())
+        loop.close()
+    for path, blocks in zip(metas, got):
+        assert all(b.verified for b in blocks)
+        assert _port_bytes(blocks) == datas[path]
+    pool = reader._pools[CPU]
+    assert trace.counts()["reader.slot_waits"] > waits
+    assert 0 < pool.peak <= 3 * SLOT_BLOCK
+    assert _taken(pool) == 0
+
+
+def test_slots_shared_by_two_event_loops(tmp_path, monkeypatch):
+    """One reader read from two threads, each running its own loop, through
+    a pool of 2 slots: a slot given back on one loop wakes a block waiting
+    on the other, and both files land whole."""
+    monkeypatch.setattr(port, "SLOT_BUDGET", 2 * SLOT_BLOCK)
+    client, _handles, metas, datas = _slot_layout(
+        tmp_path, [("/t/a", 6 * SLOT_BLOCK), ("/t/b", 6 * SLOT_BLOCK)])
+    reader = port.HbmReader(client, [CPU])
+    out = {}
+
+    def run(path):
+        out[path] = asyncio.run(asyncio.wait_for(
+            reader.read_file_to_device_blocks(path), 60))
+
+    threads = [threading.Thread(target=run, args=(p,)) for p in metas]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(90)
+    assert not any(t.is_alive() for t in threads)
+    for path in metas:
+        assert _port_bytes(out[path]) == datas[path]
+    pool = reader._pools[CPU]
+    assert 0 < pool.peak <= 2 * SLOT_BLOCK
+    assert _taken(pool) == 0
+
+
+@pytest.mark.parametrize("fault", ["missing_replica", "corrupt_first_replica",
+                                   "short_read", "failed_verify"])
+def test_slots_come_back_on_every_failure_path(tmp_path, monkeypatch, fault):
+    """The middle block of a file fails in one way: no replica on disk
+    (the read fails before it lands), its first replica flipped (caught on
+    the device, re-read through the host-verified path), every replica cut
+    short, or every replica and sidecar rewritten with one byte flipped
+    (only the device check trips). Afterwards no slot is taken, and the
+    whole budget can be taken again at once."""
+    monkeypatch.setattr(port, "SLOT_BUDGET", 2 * SLOT_BLOCK)
+    client, handles, metas, datas = _slot_layout(
+        tmp_path, [("/f/a", 3 * SLOT_BLOCK)])
+    block = metas["/f/a"]["blocks"][1]
+    bid = block["block_id"]
+    stores = [handles[a] for a in block["locations"]]
+    if fault == "missing_replica":
+        for store in stores:
+            store.block_path(bid).unlink()
+    elif fault == "corrupt_first_replica":
+        p = stores[0].block_path(bid)
+        raw = bytearray(p.read_bytes())
+        raw[42] ^= 0xFF
+        p.write_bytes(bytes(raw))
+    elif fault == "short_read":
+        for store in stores:
+            p = store.block_path(bid)
+            p.write_bytes(p.read_bytes()[:SLOT_BLOCK - 100])
+    else:
+        raw = bytearray(datas["/f/a"][SLOT_BLOCK:2 * SLOT_BLOCK])
+        raw[7] ^= 1
+        for store in stores:
+            store.write(bid, bytes(raw))
+    reader = port.HbmReader(client, [CPU])
+    read = reader.read_file_to_device_blocks("/f/a")
+    if fault == "corrupt_first_replica":
+        assert _port_bytes(asyncio.run(read)) == datas["/f/a"]
+        assert reader.rereads == 1
+    else:
+        with pytest.raises(DfsError):
+            asyncio.run(read)
+    pool = reader._pools[CPU]
+    assert pool.peak > 0 and _taken(pool) == 0
+
+    async def take_budget():
+        return [await asyncio.wait_for(pool.take(SLOT_BLOCK), 5)
+                for _ in range(2)]
+
+    assert len(asyncio.run(take_budget())) == 2
+
+
+class _Hedged:
+    """A client whose every block read makes two attempts: the first lands
+    in its buffer and loses, the second returns; a losing attempt may go
+    on writing after the read has returned."""
+
+    def __init__(self, client):
+        self.client = client
+        self.losers = []
+
+    def __getattr__(self, name):
+        return getattr(self.client, name)
+
+    async def _read_block_range(self, block, offset, length, *, into=None,
+                                **kw):
+        data = await self.client._read_block_range(block, offset, length,
+                                                   **kw)
+        self.losers.append(into(len(data)))
+        won = into(len(data))
+        won[:] = np.frombuffer(data, dtype=np.uint8)
+        return won
+
+
+def test_slot_of_a_losing_attempt_is_not_pooled(tmp_path):
+    """The slot goes to the first attempt at a block; the returned bytes
+    came from the second, so the slot is dropped, not pooled: the loser
+    may still be writing there. The blocks land whole, through the
+    pageable path."""
+    client, _handles, metas, datas = _slot_layout(
+        tmp_path, [("/h/a", 2 * SLOT_BLOCK + 7)])
+    hedged = _Hedged(client)
+    reader = port.HbmReader(hedged, [CPU])
+    before = trace.counts().get("h2d.pageable_bytes", 0)
+    blocks = asyncio.run(reader.read_file_to_device_blocks("/h/a"))
+    assert _port_bytes(blocks) == datas["/h/a"]
+    pool = reader._pools[CPU]
+    assert len(hedged.losers) == 3 and pool.peak > 0
+    assert pool.held == 0 and not any(pool._free.values())
+    assert trace.counts()["h2d.pageable_bytes"] - before == \
+        2 * SLOT_BLOCK + 512
+
+
+@pytest.mark.parametrize("stall", ["before_into", "after_into"])
+def test_slot_of_a_cancelled_read_is_not_written_under_its_next_owner(
+        tmp_path, monkeypatch, stall):
+    """A read cancelled while its worker is stalled, before or after it
+    asks for its buffer, whose worker then goes on to write its block. The
+    slot goes to a second block read without verify, and the first
+    block's worker writes between the second's pread and its copy: the
+    second block lands with its own bytes, and no slot stays taken."""
+    monkeypatch.setattr(port, "SLOT_BUDGET", SLOT_BLOCK)
+    client, _handles, metas, datas = _slot_layout(
+        tmp_path, [("/c/a", SLOT_BLOCK), ("/c/b", SLOT_BLOCK)])
+    a_id = metas["/c/a"]["blocks"][0]["block_id"]
+    started, go, wrote = (threading.Event() for _ in range(3))
+
+    def stalled(read):
+        def run(block_id, offset=0, length=None, *, into=None):
+            if block_id != a_id or into is None:
+                return read(block_id, offset, length, into=into)
+
+            def gated(nbytes):
+                buf = into(nbytes) if stall == "after_into" else None
+                started.set()
+                assert go.wait(10)
+                return buf if buf is not None else into(nbytes)
+
+            try:
+                return read(block_id, offset, length, into=gated)
+            finally:
+                wrote.set()
+        return run
+
+    for store, _ in client._local_stores.values():
+        store.read = stalled(store.read)
+        store.read_verified = stalled(store.read_verified)
+    copy = port.reused_to_device
+
+    def late_copy(src, device):
+        # The cancelled read's worker writes between the pread and the copy.
+        go.set()
+        assert wrote.wait(10)
+        return copy(src, device)
+
+    reader = port.HbmReader(client, [CPU])
+
+    async def scenario():
+        first = asyncio.create_task(
+            reader.read_file_to_device_blocks("/c/a"))
+        assert await asyncio.to_thread(started.wait, 10)
+        first.cancel()
+        with pytest.raises(asyncio.CancelledError):
+            await first
+        monkeypatch.setattr(port, "reused_to_device", late_copy)
+        return await reader.read_file_to_device_blocks("/c/b", verify=False)
+
+    blocks = asyncio.run(asyncio.wait_for(scenario(), 60))
+    assert wrote.is_set()
+    assert _port_bytes(blocks) == datas["/c/b"]
+    assert _taken(reader._pools[CPU]) == 0

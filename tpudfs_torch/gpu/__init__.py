@@ -60,19 +60,40 @@ def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     lru-cached table) is copied first. uint32 travels as int32 and is
     viewed back on arrival: a same-size view, no conversion.
 
-    Every upload of the read path comes through here: the ``reader.h2d``
-    span and the ``h2d.pinned_bytes`` / ``h2d.pageable_bytes`` counters
-    (by the source's :meth:`torch.Tensor.is_pinned`, on every device)."""
+    Every upload of the read path comes through here or through
+    :func:`reused_to_device`: the ``reader.h2d`` span and the
+    ``h2d.pinned_bytes`` / ``h2d.pageable_bytes`` counters (by the
+    source's :meth:`torch.Tensor.is_pinned`, on every device)."""
     arr = np.asarray(arr)
     if not arr.flags.writeable or not arr.flags.c_contiguous:
         arr = np.array(arr, order="C")
     u32 = arr.dtype == np.uint32
     src = torch.from_numpy(arr.view(np.int32) if u32 else arr)
     with trace.span("reader.h2d", src.nbytes):
-        trace.count("h2d.pinned_bytes" if src.is_pinned()
-                    else "h2d.pageable_bytes", src.nbytes)
+        _count_upload(src)
         out = src.to(device)
     return out.view(torch.uint32) if u32 else out
+
+
+def reused_to_device(src: torch.Tensor, device: torch.device):
+    """A copy on ``device`` of ``src``, a host buffer its caller reuses,
+    and the event recorded behind the copy (None when no copy can still
+    be reading ``src``). On a card the copy is only enqueued: a DMA where
+    ``src`` is pinned, so ``src`` may be written again once the event has
+    completed. On the CPU it is a clone, done on return."""
+    with trace.span("reader.h2d", src.nbytes):
+        _count_upload(src)
+        if device.type != "cuda":
+            return src.clone(), None
+        out = src.to(device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        return out, done
+
+
+def _count_upload(src: torch.Tensor) -> None:
+    trace.count("h2d.pinned_bytes" if src.is_pinned()
+                else "h2d.pageable_bytes", src.nbytes)
 
 
 # --- uint32 helpers --------------------------------------------------------

@@ -3,16 +3,24 @@ device — port of ``tpudfs/tpu/hbm_reader.py``.
 
 Per-block path: each block's bytes go from the fetch buffer (a zero-padded
 chunk grid the client reads straight into) to its target device in one
-copy. The whole-block CRC32C recorded at CompleteFile is computed on the
-device by one launch of the fused kernel (``crc32c.cu``: the
-per-512-byte-chunk CRCs and their GF(2) combine-fold), with no host
-readback. Under ``verify="lazy"`` every block's verdict stays on the device
-until :meth:`HbmReader.confirm` settles them all with one device→host copy.
-A degraded erasure-coded block is rebuilt on the device with kernel 2
-(``gf256.cu``). Spans (``tpudfs_torch.common.trace``): ``reader.block``
-around a block, ``reader.grid`` around the grid's allocation,
-``reader.verify`` around the check, ``ec.stack``, ``ec.upload`` and
-``ec.decode`` around an erasure-coded block's host side.
+copy. A replicated block's grid is a slot of the reader's
+:class:`SlotPool`, reused from block to block: pinned on a card, where
+the copy is enqueued from the event loop without waiting and the slot is
+written again only once an event behind that copy has completed; on the
+CPU the block's words are cloned out of it. A grid from any other
+source (a client that returns bytes, a second attempt at the block) is
+fresh pageable memory, copied in a worker. The whole-block CRC32C
+recorded at CompleteFile is computed on the device by one launch of the
+fused kernel (``crc32c.cu``: the per-512-byte-chunk CRCs and their GF(2)
+combine-fold), with no host readback. Under ``verify="lazy"`` every
+block's verdict stays on the device until :meth:`HbmReader.confirm`
+settles them all with one device→host copy. A degraded erasure-coded
+block is rebuilt on the device with kernel 2 (``gf256.cu``). Spans
+(``tpudfs_torch.common.trace``): ``reader.block`` around a block,
+``reader.grid`` around the grid's preparation (a slot's first allocation,
+the wait for its last copy, the tail's zero-fill), ``reader.verify``
+around the check, ``ec.stack``, ``ec.upload`` and ``ec.decode`` around an
+erasure-coded block's host side.
 
 Batched paths: with ``batch_reads > 0`` lazily verified blocks go through
 the read combiner (``read_combiner.py``: one native pread, one copy from a
@@ -30,6 +38,7 @@ from __future__ import annotations
 import asyncio
 import ctypes
 import logging
+import threading
 
 import numpy as np
 import torch
@@ -42,7 +51,12 @@ from tpudfs_torch.common.checksum import (
     crc32c_combine,
     crc32c_combine_chunks,
 )
-from tpudfs_torch.gpu import host_to_device, resolve_device, u32_to_numpy
+from tpudfs_torch.gpu import (
+    host_to_device,
+    resolve_device,
+    reused_to_device,
+    u32_to_numpy,
+)
 from tpudfs_torch.gpu.crc32c_cuda import (
     WORDS_PER_CHUNK,
     block_crc_device,
@@ -57,6 +71,127 @@ from tpudfs_torch.gpu.read_combiner import (
 from tpudfs_torch.gpu.rs_cuda import pad_shard_len, rs_decode_device
 
 logger = logging.getLogger(__name__)
+
+#: Host bytes that one device's landing slots (:class:`SlotPool`) may
+#: hold: 16 slots of 64 MiB blocks. That is more blocks in flight than the
+#: default executor has workers on an 8-core card host (12), so the slots
+#: hold back no read a worker could start, for 1 GiB of pinned memory.
+SLOT_BUDGET = 1 << 30
+
+
+def padded_len(nbytes: int) -> int:
+    """``nbytes`` rounded up to whole checksum chunks, one at least: the
+    length of a block's chunk grid."""
+    return max(-(-nbytes // CHECKSUM_CHUNK_SIZE), 1) * CHECKSUM_CHUNK_SIZE
+
+
+class _Slot:
+    """One reused host buffer of ``nbytes`` that a replicated block lands
+    in: ``buf`` (allocated by its first user: pinned on a card) and
+    ``copied``, the event recorded behind the last copy out of it (None:
+    no copy can still be reading it)."""
+
+    __slots__ = ("nbytes", "buf", "host", "copied")
+
+    def __init__(self, nbytes: int):
+        self.nbytes = nbytes
+        self.buf = self.host = self.copied = None
+
+    def landing(self, nbytes: int, pinned: bool) -> np.ndarray:
+        """The slot's first ``nbytes`` for a read to land in, the rest of
+        their last chunk zeroed, once no copy reads the slot. Called where
+        the read runs, usually a worker thread."""
+        if self.buf is None:
+            self.buf = torch.empty(self.nbytes, dtype=torch.uint8,
+                                   pin_memory=pinned)
+            self.host = self.buf.numpy()
+        elif self.copied is not None:
+            self.copied.synchronize()
+        self.copied = None
+        self.host[nbytes:padded_len(nbytes)] = 0
+        return self.host[:nbytes]
+
+    def words(self, nbytes: int) -> torch.Tensor:
+        """The chunk grid of the ``nbytes`` landed, as (chunks, 128) int32."""
+        return self.buf[:padded_len(nbytes)].view(torch.int32) \
+            .view(-1, WORDS_PER_CHUNK)
+
+
+def _wake(fut: asyncio.Future) -> None:
+    if not fut.done():
+        fut.set_result(None)
+
+
+class SlotPool:
+    """One device's landing slots for the per-block path, reused by size
+    and allocated lazily, :data:`SLOT_BUDGET` bytes in all at most
+    (``peak``: the most they have held). A slot is taken on an event loop
+    before its block's read, waiting there while the pool is at its
+    budget (counter ``reader.slot_waits``), and given back once the block
+    is done or failed. A slot given back with its copy in flight is
+    written again only after that copy's event has completed. The pool is
+    bound to no loop: a waiter on any loop is woken from any thread."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.budget = SLOT_BUDGET
+        self.held = self.peak = 0  # bytes of every slot, free or taken
+        self._free: dict[int, list[_Slot]] = {}
+        self._waiters: list[tuple[asyncio.AbstractEventLoop,
+                                  asyncio.Future]] = []
+        self._lock = threading.Lock()
+
+    def _take_locked(self, nbytes: int) -> _Slot | None:
+        free = self._free.get(nbytes)
+        if free:
+            return free.pop()
+        while self.held + nbytes > self.budget:
+            # Room from a free slot of another size.
+            other = next((n for n, f in self._free.items() if f), None)
+            if other is None:
+                return None
+            self._free[other].pop()
+            self.held -= other
+        self.held += nbytes
+        self.peak = max(self.peak, self.held)
+        return _Slot(nbytes)
+
+    async def take(self, nbytes: int) -> _Slot | None:
+        """A slot of ``nbytes`` (a padded block length); None for a block
+        larger than the whole budget, which lands as it did before the
+        pool."""
+        if nbytes > self.budget:
+            return None
+        counted = False
+        while True:
+            with self._lock:
+                slot = self._take_locked(nbytes)
+                if slot is None:
+                    loop = asyncio.get_running_loop()
+                    woken = loop.create_future()
+                    self._waiters.append((loop, woken))
+            if slot is not None:
+                return slot
+            if not counted:
+                trace.count("reader.slot_waits", 1)
+                counted = True
+            await woken
+
+    def give(self, slot: _Slot, keep: bool = True) -> None:
+        """``slot`` back to the pool; ``keep=False`` drops it instead (its
+        memory goes once nothing refers to it), freeing its bytes of the
+        budget. Wakes every waiter to try again."""
+        with self._lock:
+            if keep:
+                self._free.setdefault(slot.nbytes, []).append(slot)
+            else:
+                self.held -= slot.nbytes
+            waiters, self._waiters = self._waiters, []
+        for loop, woken in waiters:
+            try:
+                loop.call_soon_threadsafe(_wake, woken)
+            except RuntimeError:  # its loop has closed
+                pass
 
 
 class DeviceBlock:
@@ -135,6 +270,8 @@ class HbmReader:
         #: block on the per-block path.
         self.batch_reads = batch_reads
         self._combiners: dict[torch.device, ReadCombiner] = {}
+        #: Landing slots of the per-block path, one pool per device.
+        self._pools: dict[torch.device, SlotPool] = {}
         #: blocks served by the native sweep pump.
         self.sweep_blocks = 0
         #: Wall seconds of the sweep's consumer, summed over rounds and
@@ -152,6 +289,13 @@ class HbmReader:
             c = ReadCombiner(self.client, device, max_batch=self.batch_reads)
             self._combiners[device] = c
         return c
+
+    def _slot_pool(self, device: torch.device) -> SlotPool:
+        pool = self._pools.get(device)
+        if pool is None:
+            pool = self._pools.setdefault(
+                device, SlotPool(pinned=device.type == "cuda"))
+        return pool
 
     async def _try_batched(self, block: dict, device,
                            verify: bool | str) -> DeviceBlock | None:
@@ -224,31 +368,63 @@ class HbmReader:
         # When the device fold verifies this block end to end, a local read
         # skips the host sidecar pass (bit-rot surfaces at the device check).
         device_verify = bool(verify) and bool(block.get("checksum_crc32c"))
+        device = resolve_device(device)
+        expect = int(block.get("size") or 0)
+        pool = self._slot_pool(device)
+        # Taken here, on the loop: a worker never waits for a slot.
+        slot = await pool.take(padded_len(expect)) if expect > 0 else None
+        # Taken (never released) by the first attempt at the block that
+        # fits in the slot, or by the read itself once it is over; another
+        # attempt (a hedge, a second replica) lands in a fresh grid.
+        claim = threading.Lock()
+        landed = data = None
 
         def _grid(nbytes: int) -> np.ndarray:
-            # Chunk-padded grid the bytes land in: the returned view's
-            # .base is the padded array, so no pad-copy is needed after.
+            nonlocal landed
             with trace.span("reader.grid"):
-                pad = -nbytes % CHECKSUM_CHUNK_SIZE
-                arr = np.zeros(max(nbytes + pad, CHECKSUM_CHUNK_SIZE),
-                               dtype=np.uint8)
+                if slot is not None and padded_len(nbytes) <= slot.nbytes \
+                        and claim.acquire(blocking=False):
+                    landed = slot.landing(nbytes, pool.pinned)
+                    return landed
+                # Chunk-padded grid the bytes land in: the returned view's
+                # .base is the padded array, so no pad-copy is needed after.
+                arr = np.zeros(padded_len(nbytes), dtype=np.uint8)
                 return arr[:nbytes]
 
-        data = await self.client._read_block_range(
-            block, 0, 0, local_verify=safe_local or not device_verify,
-            into=_grid,
-        )
-        size = len(data)
-        if isinstance(data, np.ndarray):
-            grid = data.base if data.base is not None else data
-            words_np = grid.view("<u4").reshape(-1, WORDS_PER_CHUNK)
-        else:
-            # A client that delivered bytes (the reference's gRPC path).
-            words_np = bytes_to_words(data)
-        # Off the event loop: the host->device copy of a pageable buffer
-        # blocks for the whole transfer.
-        words = await asyncio.to_thread(host_to_device, words_np, device)
-        return await self._finish_block(block, words, size, verify)
+        try:
+            data = await self.client._read_block_range(
+                block, 0, 0, local_verify=safe_local or not device_verify,
+                into=_grid,
+            )
+            size = len(data)
+            if landed is not None and data is landed:
+                # Enqueued from the loop: a copy from pinned memory does
+                # not wait for the transfer.
+                words, slot.copied = reused_to_device(slot.words(size),
+                                                      device)
+                words = words.view(torch.uint32)
+            else:
+                if isinstance(data, np.ndarray):
+                    grid = data.base if data.base is not None else data
+                    words_np = grid.view("<u4").reshape(-1, WORDS_PER_CHUNK)
+                else:
+                    # A client that delivered bytes (the reference's gRPC
+                    # path).
+                    words_np = bytes_to_words(data)
+                # Off the event loop: the host->device copy of a pageable
+                # buffer blocks for the whole transfer.
+                words = await asyncio.to_thread(host_to_device, words_np,
+                                                device)
+            return await self._finish_block(block, words, size, verify)
+        finally:
+            if slot is not None:
+                # The claim decides who owns the slot. Taken here, it bars
+                # any later attempt. Taken by an attempt whose bytes were
+                # not returned (one cancelled with the read, a losing
+                # hedge), whose worker may still be writing there: the
+                # slot is dropped, not pooled.
+                pool.give(slot, keep=claim.acquire(blocking=False)
+                          or (landed is not None and data is landed))
 
     async def _ec_block_to_device(self, block: dict, device,
                                   verify: bool | str = True,
