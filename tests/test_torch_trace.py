@@ -112,9 +112,11 @@ PARENTS = {
     "restore.bounce_copy": {"restore.bounce"},
     "restore.bounce_crc": {"restore.bounce"},
     "reader.block": {"restore.read", "infeed.file"},
-    "store.pread": {"reader.block"}, "reader.grid": {"store.pread"},
+    "store.pread": {"reader.block", "ec.read_shards"},
+    "reader.grid": {"store.pread"},
     "reader.h2d": {"reader.block", "ec.upload", "restore.bounce"},
     "reader.verify": {"reader.block"},
+    "ec.read_shards": {"reader.block"},
     "ec.stack": {"reader.block"}, "ec.upload": {"reader.block"},
     "ec.decode": {"reader.block"},
     "infeed.file": {None}, "infeed.put_wait": {None},
@@ -125,7 +127,8 @@ RESTORE = {"restore.read", "restore.combined_crc", "restore.assemble",
            "reader.block", "store.pread", "reader.h2d", "reader.verify"}
 SPANS = {
     "hot": RESTORE | {"reader.grid"},
-    "cold": RESTORE | {"ec.stack", "ec.upload", "ec.decode"},
+    "cold": RESTORE | {"ec.read_shards", "ec.stack", "ec.upload",
+                       "ec.decode"},
     "infeed": {"infeed.file", "infeed.put_wait", "infeed.get_wait",
                "reader.block", "store.pread", "reader.grid", "reader.h2d",
                "reader.verify"},
@@ -237,7 +240,7 @@ NEW_METRICS = ["store.pread_gbps.restore", "store.pread_gbps.infeed",
                "reader.wait_share.restore", "reader.wait_share.infeed",
                "reader.pageable_share.restore",
                "reader.pageable_share.infeed", "reader.inflight.infeed",
-               "ec.host_ms_per_block.restore"]
+               "ec.host_ms_per_block.restore", "ec.host_ms_per_block.ec63"]
 
 
 class _Ctx:

@@ -19,8 +19,11 @@ block is rebuilt on the device with kernel 2 (``gf256.cu``). Spans
 (``tpudfs_torch.common.trace``): ``reader.block`` around a block,
 ``reader.grid`` around the grid's preparation (a slot's first allocation,
 the wait for its last copy, the tail's zero-fill), ``reader.verify``
-around the check, ``ec.stack``, ``ec.upload`` and ``ec.decode`` around an
-erasure-coded block's host side.
+around the check, ``ec.read_shards`` around an erasure-coded block's
+shard reads, ``ec.stack``, ``ec.upload`` and ``ec.decode`` around its host
+side. Counters: ``ec.shard_bytes`` (the shard bytes read),
+``ec.blocks_assembled`` (blocks joined from their data shards) and
+``ec.blocks_rebuilt`` (blocks decoded on the device).
 
 Batched paths: with ``batch_reads > 0`` lazily verified blocks go through
 the read combiner (``read_combiner.py``: one native pread, one copy from a
@@ -436,9 +439,12 @@ class HbmReader:
         m = int(block["ec_parity_shards"])
         size = int(block.get("original_size") or block.get("size") or 0)
         device_verify = bool(verify) and bool(block.get("checksum_crc32c"))
-        shards = await self.client._read_ec_shards(
-            block, local_verify=safe_local or not device_verify
-        )
+        async with trace.span("ec.read_shards") as sp:
+            shards = await self.client._read_ec_shards(
+                block, local_verify=safe_local or not device_verify
+            )
+            sp.nbytes = nbytes = sum(len(s) for s in shards if s is not None)
+        trace.count("ec.shard_bytes", nbytes)
         if all(s is not None for s in shards[:k]):
             def _assemble():
                 with trace.span("ec.stack"):
@@ -457,7 +463,9 @@ class HbmReader:
                     return host_to_device(
                         buf.view("<u4").reshape(-1, WORDS_PER_CHUNK), device)
 
-            return await asyncio.to_thread(_assemble), size
+            words = await asyncio.to_thread(_assemble)
+            trace.count("ec.blocks_assembled", 1)
+            return words, size
         present = tuple(i for i, s in enumerate(shards) if s is not None)
         if len(present) < k:
             raise DfsError(
@@ -495,6 +503,7 @@ class HbmReader:
 
         words = await asyncio.to_thread(reconstruct)
         self.ec_rebuilds += 1
+        trace.count("ec.blocks_rebuilt", 1)
         return words, size
 
     async def _finish_block(self, block: dict, words: torch.Tensor, size: int,
