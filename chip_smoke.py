@@ -93,15 +93,17 @@ Then the training job's two reads:
 - ``restore``: one data-parallel rank's checkpoint shard at real size
   (Llama-2-7B's mixed-precision state over 64 ranks: bf16 weights beside
   the fp32 master weights and Adam moments, 1.474 GB, 22 blocks of 64 MiB;
-  the bf16 tensor takes the host bounce), packed by the port's
+  the bf16 tensor is a view checked by its own CRC), packed by the port's
   ``pack_shard`` and laid out as
   the checkpoint manager saves it (a 3x-replicated hot copy and an RS(3,2)
   cold copy), restored into device memory by ``restore_shard_device``:
   healthy twice, with one byte flipped in one hot replica, and with one
   block's every hot replica corrupt and shards 0 and 3 of every cold-copy
   block missing (every block rebuilt on the card); every tensor bit-exact;
-  the bounce's time split into its copies and its host CRC
-  (``bounce_copy``, ``bounce_crc``), the layout's into the hot copy, the
+  the time of the tensors that are not 4-byte words split into their
+  views and their own CRCs (``bounce_copy``, ``bounce_crc``), the bytes
+  so checked (``tensor_counts``; one fused-CRC launch a tensor, beside one
+  a full block), the layout's into the hot copy, the
   EC encode and the EC writes (``setup_split_s``);
 - ``dataset``: GPT-2 pretraining records (nanoGPT's block of 1,024 uint16
   tokens, batches of 12) from a 1 GiB 3x-replicated file through
@@ -206,7 +208,7 @@ from tpudfs_torch.ckpt_chaos import (
 )
 from tpudfs_torch.client.local import DfsError, LocalClient, is_error_named
 from tpudfs_torch.chunkserver.blockstore import BlockStore
-from tpudfs_torch.common import ckptpaths, layout, native
+from tpudfs_torch.common import ckptpaths, layout, native, trace
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c, crc32c_fold
 from tpudfs_torch.common.erasure import encode
 from tpudfs_torch.gpu import host_to_device, u32_to_i64, u32_to_numpy
@@ -214,6 +216,7 @@ from tpudfs_torch.gpu.checkpoint import (
     CheckpointManager,
     pack_shard,
     restore_shard_device,
+    torch_dtype,
 )
 from tpudfs_torch.gpu.crc32c_cuda import (
     block_crc_device,
@@ -332,9 +335,9 @@ PATH_KERNELS = {
 #: its CRC and GF(2^8) entries; the read path lays out its stores with the
 #: chunk CRCs and reads the degraded block's shards verified; the write
 #: group's members persist every replica with the chunk CRCs and the
-#: read-back reads them verified; the restore's bounce CRCs the bf16
-#: tensor, and its cold copy is encoded and written with the fused write
-#: (``restore_path`` also requires the CRC in each healthy run); the bench
+#: read-back reads them verified; the restore CRCs the payload and its
+#: tail block, and its cold copy is encoded and written with the fused
+#: write; the bench
 #: lays out its sets with the chunk CRCs and ``read_profile``'s ``disk``
 #: stage reads verified.
 PATH_ENGINE = {
@@ -1327,6 +1330,19 @@ CKPT_PARAMS = LLAMA2_7B_PARAMS // CKPT_RANKS  # 105,312,500: 1.474 GB a rank
 #: and the shards the degraded run loses from every block of it.
 CKPT_EC = (3, 2)
 CKPT_LOST = (0, 3)
+#: The restore's counters of the tensors checked by their own CRC.
+TENSOR_COUNTS = ("restore.tensor_crc_bytes", "restore.tensor_clones")
+
+
+def _align_chunks(nbytes: int) -> int:
+    """Whole 512-byte chunks that hold ``nbytes``: the chunk range the
+    restore's own CRC of a tensor reads."""
+    return -(-nbytes // CHECKSUM_CHUNK_SIZE)
+
+
+#: The chunk range of the restore's bf16 weights (2 bytes a parameter),
+#: its largest tensor checked by its own CRC.
+CKPT_MODEL_CHUNKS = _align_chunks(2 * CKPT_PARAMS)
 
 
 def ckpt_state(n: int, seed: int, device: torch.device) -> dict:
@@ -1334,7 +1350,7 @@ def ckpt_state(n: int, seed: int, device: torch.device) -> dict:
     ``params``, ``adam_m`` and ``adam_v`` of ``n`` elements each, the bf16
     ``model`` (``params`` rounded to bf16, the weights the forward pass
     reads), an int64 ``step`` and an int8 ``flags`` tensor of 13. The last
-    three are not 4-byte dtypes, so they take the host bounce, and
+    three are not 4-byte dtypes, so each is checked by its own CRC, and
     ``step``, last in name order, ends the payload off a 512-byte
     boundary."""
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -1425,7 +1441,7 @@ async def _restore_run(reader: HbmReader, client: LocalClient, spec: dict,
     stage = dict.fromkeys(("read", "combined_crc", "assemble", "bounce",
                            "bounce_copy", "bounce_crc"), 0.0)
     rereads, before = reader.rereads, launch_counts()
-    engine = native.call_counts()
+    engine, counts = native.call_counts(), trace.counts()
     sync(device)
     t0 = time.perf_counter()
     out = await restore_shard_device(reader, client, spec, device, stats,
@@ -1437,7 +1453,9 @@ async def _restore_run(reader: HbmReader, client: LocalClient, spec: dict,
             "stage_s": stage, "rereads": reader.rereads - rereads,
             "degraded_shard_reads": stats["degraded_shard_reads"],
             "launches": _delta(launch_counts(), before),
-            "engine_calls": _delta(native.call_counts(), engine)}
+            "engine_calls": _delta(native.call_counts(), engine),
+            "tensor_counts": {k: trace.counts().get(k, 0) - counts.get(k, 0)
+                              for k in TENSOR_COUNTS}}
 
 
 def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
@@ -1487,10 +1505,22 @@ def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
                                                tree))
         finally:
             _flip_first_replica(client, mid)
-        no_crc = [r for r in runs if not r["engine_calls"]["crc32c"]]
-        if no_crc:
-            raise AssertionError(f"restore: the bounce's CRC did not run "
-                                 f"the native engine: {no_crc}")
+        non_word = [t for t in spec["tensors"]
+                    if torch_dtype(t["dtype"]).itemsize != 4]
+        own = {"restore.tensor_crc_bytes": sum(t["size"] for t in non_word),
+               "restore.tensor_clones": 0}
+        # On a card: one fused CRC launch a full block, one a tensor that
+        # is not 4-byte words.
+        full = sum(b["size"] % CHECKSUM_CHUNK_SIZE == 0 for b in blocks)
+        cuda = device.type == "cuda"
+        own_launches = len(non_word) * cuda
+        unchecked = [r for r in runs if r["tensor_counts"] != own
+                     or r["launches"]["crc32c_blocks"]
+                     != full * cuda + own_launches]
+        if unchecked:
+            raise AssertionError(
+                f"restore: the tensors' own CRCs did not check {own} in "
+                f"{own_launches} launches beside {full * cuda}: {unchecked}")
         if flipped["rereads"] != 1 or flipped["degraded_shard_reads"]:
             raise AssertionError(f"restore with a flipped replica: {flipped}")
         for replica in range(3):
@@ -1527,7 +1557,12 @@ def restore_path(device: torch.device, *, params: int = CKPT_PARAMS,
             "setup_split_s": setup_parts, **runs[1],
             "first_run": runs[0], "flipped": flipped, "degraded": degraded,
             "degraded_gbps": degraded["gbps"], "exact": True,
-            "launches": counts}
+            "launches": counts,
+            # Of counts["crc32c_blocks"]: the tensors' own CRCs, one launch
+            # a tensor in each of the four restores.
+            "tensor_crc_launches": 4 * own_launches,
+            "tensor_crc_chunks": [_align_chunks(t["size"])
+                                  for t in non_word]}
 
 
 # ------------------------------------------------------- phase: dataset
@@ -2682,8 +2717,9 @@ def _kernels_vs_plain(device: torch.device, rng) -> dict:
             raise AssertionError(f"crc32c_chunks differs at C={c}: {err}")
         crc[str(c)] = err
     blocks = {}
-    for cpb in (1, 257, 131072):
-        for nblocks in (1, 3, 4, 16):
+    for cpb, counts in ((1, (1, 3, 4, 16)), (257, (1, 3, 4, 16)),
+                        (131072, (1, 3, 4, 16)), (CKPT_MODEL_CHUNKS, (1,))):
+        for nblocks in counts:
             words = device_words(rng, (nblocks * cpb, 128), device)
             err = _same(crc32c_blocks_device(words, nblocks),
                         crc32c_blocks_plain(words, nblocks, wcontrib,
@@ -2894,20 +2930,29 @@ def _write_kernel_times(device, rng, by_path, write, ec, phase, table) -> None:
 def _restore_kernel_times(device, rng, restore, phase, table) -> None:
     """Both kernels at the restore's shapes, added to the kernel_times
     phase and, nested, to the table's rows, each with the restore's
-    launches: the fused CRC of one block (one eager launch a full block)
-    and the RS(k,m) decode that rebuilds one cold-copy block from k
-    survivors (a (k, k) matrix at one block's padded shard width; its bound
-    counts k rows in and k out)."""
-    c = restore["block_size"] // CHECKSUM_CHUNK_SIZE
-    words = device_words(rng, (c, 128), device)
+    launches at that shape: the fused CRC of one block (one eager launch a
+    full block), of the bf16 weights' chunk range (their own CRC, one
+    launch a restore; the int8 and int64 tensors' one-chunk launches are
+    ``kernels_vs_plain``'s one-chunk case) and the RS(k,m) decode that
+    rebuilds one cold-copy block from k survivors (a (k, k) matrix at one
+    block's padded shard width; its bound counts k rows in and k out)."""
     wcontrib = host_to_device(word_contrib_table(), device)
-    fold = fold_table_device(c, device)
-    crc = _timed_row(
-        device, lambda: crc32c_blocks_device(words, 1),
-        lambda: crc32c_blocks_plain(words, 1, wcontrib, inv_contrib(), fold),
-        _blocks_bytes(c, 1), restore["launches"]["crc32c_blocks"], chunks=c,
-        nblocks=1)
-    del words
+    rows = {}
+    own = restore["tensor_crc_chunks"]
+    for key, c, launches in (
+            ("block", restore["block_size"] // CHECKSUM_CHUNK_SIZE,
+             restore["launches"]["crc32c_blocks"]
+             - restore["tensor_crc_launches"]),
+            ("tensor", max(own),
+             restore["tensor_crc_launches"] // len(own))):
+        words = device_words(rng, (c, 128), device)
+        fold = fold_table_device(c, device)
+        rows[key] = _timed_row(
+            device, lambda: crc32c_blocks_device(words, 1),
+            lambda: crc32c_blocks_plain(words, 1, wcontrib, inv_contrib(),
+                                        fold),
+            _blocks_bytes(c, 1), launches, chunks=c, nblocks=1)
+        del words, fold
     k, m = restore["ec"]
     w = pad_shard_len(-(-restore["block_size"] // k)) // 4
     present = tuple(i for i in range(k + m) if i not in restore["ec_lost"])
@@ -2917,11 +2962,13 @@ def _restore_kernel_times(device, rng, restore, phase, table) -> None:
         device, lambda: gf_matmul_words(shards, dec),
         lambda: gf_rows_plain(shards, dec), 2 * k * w * 4 + dec.numel() * 4,
         restore["launches"]["gf256_matmul"], words=w, matrix=[k, k])
-    phase["crc32c_blocks_restore"] = crc
+    phase["crc32c_blocks_restore"] = rows["block"]
+    phase["crc32c_blocks_restore_tensor"] = rows["tensor"]
     phase[f"gf256_restore_decode_{k}_{m}"] = decode
-    rows = {row["name"]: row for row in table}
-    rows["crc32c_blocks"]["at_restore_block"] = crc
-    rows["gf256_matmul"]["at_restore_decode"] = decode
+    by_name = {row["name"]: row for row in table}
+    by_name["crc32c_blocks"]["at_restore_block"] = rows["block"]
+    by_name["crc32c_blocks"]["at_restore_tensor"] = rows["tensor"]
+    by_name["gf256_matmul"]["at_restore_decode"] = decode
 
 
 def _entry_kernel_times(device, rng, entry_run, dryrun, phase,

@@ -29,9 +29,10 @@ from tpudfs.common import resilience
 from tpudfs.testing.ckptchaos import assert_restores_bit_exact, ckpt_tree
 from tpudfs.tpu import checkpoint as ref
 from tpudfs_torch.client.local import ChecksumMismatchError, LocalClient
-from tpudfs_torch.common import ckptpaths
-from tpudfs_torch.common.checksum import crc32c
+from tpudfs_torch.common import ckptpaths, trace
+from tpudfs_torch.common.checksum import crc32c, crc32c_combine
 from tpudfs_torch.gpu import checkpoint as port
+from tpudfs_torch.gpu import u32_to_numpy
 from tpudfs_torch.gpu.hbm_reader import HbmReader
 
 CPU = torch.device("cpu")
@@ -239,8 +240,9 @@ def test_pack_refuses_dtypes_numpy_lacks(dtype):
 
 async def test_device_restore_every_dtype_on_local_client(tmp_path):
     """Every dtype through ``restore_shard_device`` on the port's
-    ``LocalClient``: 4-byte tensors are views of one word stream, the rest
-    bounce through the host; the same tree as ``unpack_shard``."""
+    ``LocalClient``: every tensor is a view of one word stream, those that
+    are not 4-byte words checked by their own CRC; the same tree as
+    ``unpack_shard``."""
     tree = _tree(5)
     payload, specs = port.pack_shard(tree)
     stores, metas = chip_smoke.lay_out_shard(
@@ -257,8 +259,7 @@ async def test_device_restore_every_dtype_on_local_client(tmp_path):
     _assert_tree_equal(_as_numpy(out), tree)
     assert set(stage) == {"read", "combined_crc", "assemble", "bounce",
                           "bounce_copy", "bounce_crc"}
-    words = {out[n].untyped_storage().data_ptr()
-             for n in ("w/f4", "opt/i4", "opt/u4")}
+    words = {out[n].untyped_storage().data_ptr() for n in tree}
     assert len(words) == 1
     assert out["w/f4"].dtype == torch.float32 and out["opt/u4"].dtype == \
         torch.uint32 and out["flags/b1"].dtype == torch.bool
@@ -270,21 +271,32 @@ async def test_device_restore_every_dtype_on_local_client(tmp_path):
     assert stats["degraded_shard_reads"] == 1
 
 
-def _local_spec(tmp_path, tree: dict, block_size: int = 4096):
-    payload, specs = port.pack_shard(tree)
+def _local_spec(tmp_path, tree: dict, block_size: int = 4096, *,
+                cold: bool = False, packed: tuple | None = None):
+    """``tree`` packed (or ``packed``, a hand-built (payload, tensor
+    specs)) and laid out as the manager saves it; ``cold``: the hot copy's
+    replicas are on no store and shard 0 of every cold block is lost, so
+    the restore falls back and rebuilds every block."""
+    payload, specs = packed or port.pack_shard(tree)
     stores, metas = chip_smoke.lay_out_shard(
         tmp_path, np.frombuffer(payload, dtype=np.uint8),
         block_size=block_size, hot="/c/hot", cold="/c/ec")
+    client = LocalClient(stores, metas)
+    if cold:
+        for b in metas["/c/hot"]["blocks"]:
+            b["locations"] = ["gone:1"]
+        chip_smoke._drop_shards(client, metas["/c/ec"], (0,))
     spec = {"shard": 0, "path": "/c/hot", "ec_path": "/c/ec",
             "size": len(payload), "crc32c": crc32c(payload),
-            "tensors": [s.to_dict() for s in specs]}
-    return LocalClient(stores, metas), spec, payload
+            "tensors": [s if isinstance(s, dict) else s.to_dict()
+                        for s in specs]}
+    return client, spec, payload
 
 
 async def test_device_restore_bf16_and_complex_on_local_client(tmp_path):
     """bf16, complex64 and complex128 come back in their torch dtypes, bit
-    for bit, through the host bounce; the host path gives ``|V2`` arrays
-    of the same bytes, as the reference's does."""
+    for bit, as views of the word stream; the host path gives ``|V2``
+    arrays of the same bytes, as the reference's does."""
     torch_tree, _ = _raw_bit_trees(3)
     tree = {k: v for k, v in torch_tree.items()
             if k.startswith("bfloat16/") or k in ("c8", "c16")}
@@ -308,6 +320,169 @@ async def test_device_restore_bf16_and_complex_on_local_client(tmp_path):
     assert stage["bounce_crc"] > 0
     assert stage["bounce"] == pytest.approx(stage["bounce_copy"]
                                             + stage["bounce_crc"])
+
+
+#: The tensors of ``_non_word_tree`` that are not 4-byte words.
+NON_WORD = ("c16", "c8", "flags", "model", "step")
+
+
+def _non_word_tree(seed: int) -> dict:
+    """bf16 weights, int8 flags, an int64 step, complex64 and complex128
+    tensors beside fp32 ones, odd sizes included."""
+    g = torch.Generator().manual_seed(seed)
+    return {"model": torch.randn(3001, generator=g).to(torch.bfloat16),
+            "flags": torch.randint(-128, 128, (13,), dtype=torch.int8,
+                                   generator=g),
+            "step": torch.tensor(2**40 + seed, dtype=torch.int64),
+            "c8": torch.randn(21, dtype=torch.complex64, generator=g),
+            "c16": torch.randn(3, 5, dtype=torch.complex128, generator=g),
+            "params": torch.randn(1000, generator=g)}
+
+
+def _restore_cpu(client, spec) -> dict:
+    return asyncio.run(port.restore_shard_device(
+        HbmReader(client, [CPU]), client, spec, CPU,
+        {"degraded_shard_reads": 0}))
+
+
+def _bytes(t: torch.Tensor) -> bytes:
+    return t.reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def _tensor_counts(before: dict) -> dict:
+    after = trace.counts()
+    return {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("restore.tensor_crc_bytes", "restore.tensor_clones")}
+
+
+@pytest.mark.parametrize("cold", [False, True], ids=["hot", "cold"])
+def test_non_word_tensors_are_views_checked_by_their_own_crc(tmp_path, cold):
+    """bf16, int8, int64, complex64 and complex128 tensors come back as
+    views of the word stream (one storage with the fp32 ones), bit-exact
+    against ``unpack_shard`` and against the reference's
+    ``_restore_shard_device`` (JAX's 64-bit mode keeps its 8-byte widths;
+    it has no device restore of bf16, so the bf16 weights are left out of
+    its spec, and a cold restore reads its cold copy alone); the counters
+    give the bytes checked by their own CRC and no clone."""
+    import jax
+
+    from tpudfs.tpu.hbm_reader import HbmReader as RefHbmReader
+
+    tree = _non_word_tree(4)
+    client, spec, payload = _local_spec(tmp_path, tree, cold=cold)
+    before = trace.counts()
+    out = _restore_cpu(client, spec)
+    assert _tensor_counts(before) == {
+        "restore.tensor_crc_bytes": sum(t["size"] for t in spec["tensors"]
+                                        if t["name"] in NON_WORD),
+        "restore.tensor_clones": 0}
+    host = port.unpack_shard(payload, spec["tensors"])
+    for name, want in tree.items():
+        got = out[name]
+        assert (got.dtype, got.shape, got.device) == \
+            (want.dtype, want.shape, CPU), name
+        assert _bytes(got) == _bytes(want) == host[name].tobytes(), name
+    assert len({t.untyped_storage().data_ptr() for t in out.values()}) == 1
+    client.block_size = 4096  # what the reference's manager asks of a client
+    jdev = jax.devices("cpu")[0]
+    mgr = ref.CheckpointManager(client, "/c", num_shards=1, ec=None,
+                                reader=RefHbmReader(client, [jdev]))
+    # Cold: straight to the cold copy, as the reference's fallback takes
+    # only its own package's DfsError.
+    no_bf16 = {**spec, "path": None if cold else spec["path"],
+               "tensors": [t for t in spec["tensors"]
+                           if t["name"] != "model"]}
+    with jax.enable_x64(True):
+        theirs = asyncio.run(mgr._restore_shard_device(no_bf16, jdev))
+    assert sorted(theirs) == sorted(set(tree) - {"model"})
+    for name, arr in theirs.items():
+        arr = np.asarray(arr)
+        assert arr.dtype == host[name].dtype, name
+        assert arr.tobytes() == _bytes(out[name]), name
+
+
+@pytest.mark.parametrize("name", NON_WORD)
+@pytest.mark.parametrize("cold", [False, True], ids=["hot", "cold"])
+def test_a_flipped_tensor_crc_fails_naming_the_tensor(tmp_path, cold, name):
+    """A spec whose CRC of one tensor that is not 4-byte words is one bit
+    off fails the restore with ``ChecksumMismatchError`` naming it."""
+    client, spec, _ = _local_spec(tmp_path, _non_word_tree(5), cold=cold)
+    spec["tensors"] = [{**t, "crc32c": t["crc32c"] ^ (1 << 17)}
+                       if t["name"] == name else t for t in spec["tensors"]]
+    with pytest.raises(ChecksumMismatchError, match=repr(name)):
+        _restore_cpu(client, spec)
+
+
+def _hand_packed(seed: int) -> tuple[bytes, list[dict], dict]:
+    """A payload no packer writes: 4 uint8 flags at offset 0, an int64
+    tensor right after them at offset 4 (which 8 does not divide, and
+    which fills the flags' chunk gap), fp32 weights at 512."""
+    rng = np.random.default_rng(seed)
+    tree = {"flags": rng.integers(0, 256, 4, dtype=np.uint8),
+            "i8": rng.integers(-2**62, 2**62, 37, dtype=np.int64),
+            "w": rng.standard_normal(100, dtype=np.float32)}
+    payload, specs, offsets = bytearray(), [], (0, 4, 512)
+    for (name, arr), off in zip(tree.items(), offsets):
+        payload.extend(b"\0" * (off - len(payload)))
+        raw = arr.tobytes()
+        specs.append({"name": name, "dtype": arr.dtype.str,
+                      "shape": list(arr.shape), "offset": off,
+                      "size": len(raw), "crc32c": crc32c(raw)})
+        payload.extend(raw)
+    return bytes(payload), specs, tree
+
+
+@pytest.mark.parametrize("cold", [False, True], ids=["hot", "cold"])
+def test_an_offset_its_item_size_does_not_divide_takes_a_clone(tmp_path,
+                                                               cold):
+    """The hand-packed payload: the int64 tensor at offset 4 is a device
+    clone, counted once; the flags stay a view; both bit-exact."""
+    payload, specs, tree = _hand_packed(6)
+    client, spec, _ = _local_spec(tmp_path, None, cold=cold,
+                                  packed=(payload, specs))
+    before = trace.counts()
+    out = _restore_cpu(client, spec)
+    assert _tensor_counts(before) == {"restore.tensor_crc_bytes": 4 + 296,
+                                      "restore.tensor_clones": 1}
+    for name, want in tree.items():
+        assert out[name].numpy().tobytes() == want.tobytes(), name
+        assert out[name].dtype == port.torch_dtype(want.dtype.str)
+    stream = out["w"].untyped_storage().data_ptr()
+    assert out["flags"].untyped_storage().data_ptr() == stream
+    assert out["i8"].untyped_storage().data_ptr() != stream
+
+
+def test_padded_tensor_crcs_carry_each_crc_across_the_zeros():
+    """What a card computes, by the plain twin: each tensor's CRC over its
+    zero-padded chunk range is its own CRC carried across the zeros
+    (``crc32c_combine(crc, crc32c(zeros), pad)``), for every tensor a
+    packer writes and for the hand-packed ones, whose ranges the spec's
+    offsets send through a zero-padded copy; one bit off in a tensor's
+    CRC, and the verdict is no; under portbench's ``no_verify`` control
+    (a host CRC that always agrees) it is yes."""
+    from portbench import faults
+
+    tree = _non_word_tree(7)
+    payload, specs = port.pack_shard(tree)
+    hand, hand_specs, _ = _hand_packed(8)
+    for payload, tensors, offsets in (
+            (payload, [s.to_dict() for s in specs if s.name in NON_WORD],
+             [s.offset for s in specs]),
+            (hand, hand_specs[:2], [s["offset"] for s in hand_specs])):
+        stream = torch.frombuffer(
+            bytearray(payload + bytes(-len(payload) % 512)), dtype=torch.uint8)
+        got = [int(g) for g in u32_to_numpy(
+            port.padded_tensor_crcs(stream, tensors, offsets))]
+        pads = [-t["size"] % 512 for t in tensors]
+        assert got == [crc32c_combine(t["crc32c"], crc32c(bytes(pad)), pad)
+                       for t, pad in zip(tensors, pads)]
+        assert any(pads) and got != [t["crc32c"] for t in tensors]
+        for t, g in zip(tensors, got):
+            off_by_one = {**t, "crc32c": t["crc32c"] ^ (1 << 9)}
+            assert port._padded_crc_agrees(t, g)
+            assert not port._padded_crc_agrees(off_by_one, g)
+            with faults.planted("no_verify"):
+                assert port._padded_crc_agrees(off_by_one, g)
 
 
 @pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.float8_e5m2],

@@ -486,8 +486,8 @@ def test_restore_shard_device_on_card_matches_cpu(cuda_device, tmp_path,
     assert crc32c_cuda.crc32c_chunks_device.launches > before["chunks"]
     assert rs_cuda.gf_matmul_words.launches - before["gf"] == \
         (nblocks if degraded else 0)
-    # The bf16 weights and the complex64 tensor are 2- and 8-byte bounces
-    # into cuda:0.
+    # The bf16 weights and the complex64 tensor are 2- and 8-byte views of
+    # the word stream in cuda:0, each checked by its own CRC there.
     assert (tree["model"].dtype, tree["z"].dtype) == (torch.bfloat16,
                                                       torch.complex64)
     for name, want in tree.items():
@@ -503,19 +503,17 @@ def test_restore_lands_blocks_through_pinned_slots_on_card(cuda_device,
     """Two healthy restores into ``cuda:0`` in a row, the second landing in
     the slots the first gave back: each uploads every block from the
     reader's pinned slots (its padded bytes in ``h2d.pinned_bytes``) and
-    only the host bounces from pageable memory, bit-exact; the pool holds
-    no slot taken afterwards."""
+    nothing from pageable memory, bit-exact; the pool holds no slot taken
+    afterwards."""
     from tpudfs_torch.common import trace
     from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE
-    from tpudfs_torch.gpu.checkpoint import restore_shard_device, torch_dtype
+    from tpudfs_torch.gpu.checkpoint import restore_shard_device
 
     client, spec, tree, metas = _shard_layout(tmp_path, seed=63)
     _restore(client, spec, cuda_device)  # the kernels' tables: uploaded once
     reader = HbmReader(client, [cuda_device])
     blocks = sum(-(-b["size"] // CHECKSUM_CHUNK_SIZE) * CHECKSUM_CHUNK_SIZE
                  for b in metas["/c/hot"]["blocks"])
-    bounce = sum(t["size"] for t in spec["tensors"]
-                 if torch_dtype(t["dtype"]).itemsize != 4 or t["size"] % 4)
     for _ in range(2):
         before = trace.counts()
         out = asyncio.run(restore_shard_device(
@@ -525,7 +523,7 @@ def test_restore_lands_blocks_through_pinned_slots_on_card(cuda_device,
         moved = {k: after.get(k, 0) - before.get(k, 0)
                  for k in ("h2d.pinned_bytes", "h2d.pageable_bytes")}
         assert moved == {"h2d.pinned_bytes": blocks,
-                         "h2d.pageable_bytes": bounce}
+                         "h2d.pageable_bytes": 0}
         for name, want in tree.items():
             got = out[name]
             assert got.device == cuda_device and got.dtype == want.dtype
@@ -536,27 +534,110 @@ def test_restore_lands_blocks_through_pinned_slots_on_card(cuda_device,
         s.nbytes for free in pool._free.values() for s in free)
 
 
-def test_restore_bounce_crc_runs_the_native_engine_on_card(cuda_device,
-                                                          tmp_path):
-    """A bf16 tensor's host bounce into ``cuda:0`` is checked by the native
-    host engine's CRC (its counter rises; ``stage_s`` splits the bounce
-    into its copies and that CRC), bit-exact."""
-    from tpudfs_torch.common import native
-    from tpudfs_torch.gpu.checkpoint import restore_shard_device
+def test_restore_checks_non_word_tensors_by_their_own_crc_on_card(
+        cuda_device, tmp_path, monkeypatch):
+    """The tensors that are not 4-byte words (bf16 weights, int64 step,
+    int8 flags, complex64) come back in ``cuda:0`` as views of the word
+    stream, bit-exact: each checked by one more launch of the fused CRC
+    kernel, none by the host CRC over its bytes; ``stage_s`` splits
+    ``bounce`` into ``bounce_copy`` and ``bounce_crc``; the counters give
+    their bytes and no clone."""
+    from tpudfs_torch.common import trace
+    from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE
+    from tpudfs_torch.gpu import checkpoint
 
-    client, spec, tree, _ = _shard_layout(tmp_path, seed=62)
-    native.reset_calls()
+    client, spec, tree, metas = _shard_layout(tmp_path, seed=62)
+    non_word = [t for t in spec["tensors"]
+                if checkpoint.torch_dtype(t["dtype"]).itemsize != 4]
+    assert sorted(t["name"] for t in non_word) == ["flags", "model", "step",
+                                                   "z"]
+    full = sum(b["size"] % CHECKSUM_CHUNK_SIZE == 0
+               for b in metas["/c/hot"]["blocks"])
+    reader = HbmReader(client, [cuda_device])
+    _restore(client, spec, cuda_device)  # the kernels' tables: uploaded once
+    host_crcs, real = [], checkpoint.crc32c
+
+    def host_crc(data, crc=0):
+        host_crcs.append(data)
+        return real(data, crc)
+
+    monkeypatch.setattr(checkpoint, "crc32c", host_crc)
+    launches = crc32c_cuda.crc32c_blocks_device.launches
+    before = trace.counts()
     stage = {}
-    out = asyncio.run(restore_shard_device(
-        HbmReader(client, [cuda_device]), client, spec, cuda_device,
-        {"degraded_shard_reads": 0}, stage_s=stage))
+    out = asyncio.run(checkpoint.restore_shard_device(
+        reader, client, spec, cuda_device, {"degraded_shard_reads": 0},
+        stage_s=stage))
     torch.cuda.synchronize(cuda_device)
-    assert native.call_counts()["crc32c"] >= 2  # the bf16 and complex bounces
+    after = trace.counts()
+    assert crc32c_cuda.crc32c_blocks_device.launches - launches == \
+        full + len(non_word)
+    # The host engine CRCs the zeros that pad each tensor's chunk range
+    # (its side of the compare), never a tensor's bytes.
+    assert len(host_crcs) == len(non_word)
+    assert all(isinstance(d, bytes) and len(d) < 512 and not any(d)
+               for d in host_crcs)
+    assert {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("restore.tensor_crc_bytes",
+                      "restore.tensor_clones")} == {
+        "restore.tensor_crc_bytes": sum(t["size"] for t in non_word),
+        "restore.tensor_clones": 0}
     assert stage["bounce_crc"] > 0 and stage["bounce_copy"] > 0
-    assert out["model"].dtype == torch.bfloat16
-    assert out["model"].device == cuda_device
-    assert torch.equal(out["model"].cpu().view(torch.uint8),
-                       tree["model"].view(torch.uint8))
+    assert stage["bounce"] == pytest.approx(stage["bounce_copy"]
+                                            + stage["bounce_crc"])
+    stream = out["params"].untyped_storage().data_ptr()
+    for name, want in tree.items():
+        got = out[name]
+        assert (got.device, got.dtype, got.shape) == \
+            (cuda_device, want.dtype, want.shape), name
+        assert got.untyped_storage().data_ptr() == stream, name
+        assert torch.equal(got.cpu().reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8)), name
+
+
+def test_restore_on_card_refuses_a_flipped_tensor_crc_and_clones_an_odd_offset(
+        cuda_device, tmp_path):
+    """On the card: a spec whose CRC of the bf16 weights is one bit off
+    fails naming them; a hand-packed payload (uint8 flags at 0, an int64
+    tensor right after them at offset 4, so the flags' chunk range holds
+    bytes) restores bit-exact, the int64 tensor through one clone."""
+    from tpudfs_torch.client.local import ChecksumMismatchError
+    from tpudfs_torch.common import trace
+    from tpudfs_torch.common.checksum import crc32c
+    import chip_smoke
+
+    client, spec, _, _ = _shard_layout(tmp_path, seed=64)
+    flipped = {**spec, "tensors": [
+        {**t, "crc32c": t["crc32c"] ^ 1} if t["name"] == "model" else t
+        for t in spec["tensors"]]}
+    with pytest.raises(ChecksumMismatchError, match="'model'"):
+        _restore(client, flipped, cuda_device)
+    rng = np.random.default_rng(65)
+    tree = {"flags": rng.integers(0, 256, 4, dtype=np.uint8),
+            "i8": rng.integers(-2**62, 2**62, 37, dtype=np.int64),
+            "w": rng.standard_normal(100, dtype=np.float32)}
+    payload, tensors = bytearray(), []
+    for (name, arr), off in zip(tree.items(), (0, 4, 512)):
+        payload.extend(b"\0" * (off - len(payload)))
+        tensors.append({"name": name, "dtype": arr.dtype.str,
+                        "shape": list(arr.shape), "offset": off,
+                        "size": arr.nbytes, "crc32c": crc32c(arr.tobytes())})
+        payload.extend(arr.tobytes())
+    (tmp_path / "b").mkdir()
+    stores, metas = chip_smoke.lay_out_shard(
+        tmp_path / "b", np.frombuffer(bytes(payload), dtype=np.uint8),
+        block_size=64 * 1024, hot="/c/hot", cold="/c/ec")
+    client = LocalClient(stores, metas)
+    spec = {"shard": 0, "path": "/c/hot", "ec_path": "/c/ec",
+            "size": len(payload), "crc32c": crc32c(bytes(payload)),
+            "tensors": tensors}
+    before = trace.counts()
+    out, _ = _restore(client, spec, cuda_device)
+    assert trace.counts()["restore.tensor_clones"] - \
+        before.get("restore.tensor_clones", 0) == 1
+    for name, want in tree.items():
+        assert out[name].device == cuda_device
+        assert out[name].cpu().numpy().tobytes() == want.tobytes(), name
 
 
 def test_rs_3_2_decode_at_block_width_matches_plain(cuda_device):

@@ -2,8 +2,9 @@
 it records nothing; on, a hot and a cold CPU restore and a ``DfsInfeed``
 read give every span of the read path, each child inside its parent and
 parented across ``asyncio.to_thread``; ``stage_s`` is the restore spans'
-durations; the upload counters are the bytes uploaded; a degraded
-restore's tensors die with their last reference; and the benchmark's
+durations; the upload counters are the bytes uploaded, and the tensor
+CRC counters the bytes checked by their own CRC; a degraded restore's
+tensors die with their last reference; and the benchmark's
 readers of these spans (``portbench.program_trace``), its two-point clock
 mapping and its breakdown of idle gaps."""
 
@@ -114,7 +115,7 @@ PARENTS = {
     "reader.block": {"restore.read", "infeed.file"},
     "store.pread": {"reader.block", "ec.read_shards"},
     "reader.grid": {"store.pread"},
-    "reader.h2d": {"reader.block", "ec.upload", "restore.bounce"},
+    "reader.h2d": {"reader.block", "ec.upload"},
     "reader.verify": {"reader.block"},
     "ec.read_shards": {"reader.block"},
     "ec.stack": {"reader.block"}, "ec.upload": {"reader.block"},
@@ -204,8 +205,8 @@ def test_upload_counters_are_the_bytes_uploaded(tmp_path, sink, cold):
     after = trace.counts()
     moved = {k: after.get(k, 0) - before.get(k, 0)
              for k in ("h2d.pageable_bytes", "h2d.pinned_bytes")}
-    bounce = sum(t["size"] for t in spec["tensors"]
-                 if t["size"] % 4 or t["dtype"] not in ("<f4",))
+    # The blocks alone: the tensors that are not 4-byte words stay on the
+    # device, as views checked by their own CRC.
     if cold:
         # Three shards of each block, each padded to the decoder's width.
         from tpudfs_torch.gpu.rs_cuda import pad_shard_len
@@ -214,10 +215,25 @@ def test_upload_counters_are_the_bytes_uploaded(tmp_path, sink, cold):
     else:
         blocks = sum(-(-b["size"] // CHECKSUM_CHUNK_SIZE) * CHECKSUM_CHUNK_SIZE
                      for b in metas["/c/hot"]["blocks"])
-    assert moved == {"h2d.pageable_bytes": blocks + bounce,
-                     "h2d.pinned_bytes": 0}
+    assert moved == {"h2d.pageable_bytes": blocks, "h2d.pinned_bytes": 0}
     assert moved["h2d.pageable_bytes"] == sum(
         s[3] for s in sink.items if s[0] == "reader.h2d")
+
+
+@pytest.mark.parametrize("cold", [False, True])
+def test_tensor_crc_counters_are_the_non_word_bytes(tmp_path, cold):
+    """``restore.tensor_crc_bytes`` counts the bytes of the tensors checked
+    by their own CRC (the bf16 weights and the int64 step), with no sink
+    installed; ``restore.tensor_clones`` counts none."""
+    client, spec, _metas = _shard(tmp_path, cold)
+    before = trace.counts()
+    _restore(client, spec)
+    after = trace.counts()
+    assert {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("restore.tensor_crc_bytes",
+                      "restore.tensor_clones")} == {
+        "restore.tensor_crc_bytes": 3001 * 2 + 8,
+        "restore.tensor_clones": 0}
 
 
 def test_degraded_restore_frees_its_tensors_without_the_collector(tmp_path):

@@ -69,7 +69,7 @@ _SEED = 0xC4F07
 def ckpt_tree(step: int, shard: int, *, kib: int = 96) -> dict:
     """The canonical tensor tree for (step, shard): ~``kib`` KiB split
     across float32 "weights", int32 "opt state" and an int8 tail (the
-    int8 tensor takes the device restore's host bounce)."""
+    int8 tensor is checked by its own CRC in the device restore)."""
     rng = np.random.default_rng(_SEED + 100_003 * step + shard)
     words = (kib * 1024) // 4
     w = words // 2

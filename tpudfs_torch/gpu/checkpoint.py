@@ -27,7 +27,8 @@ per-chunk kernel (``crc32c_chunks``), and a degraded EC block is rebuilt on
 the device by the GF(2^8) kernel (``gf256_matmul``) before its check. The
 whole-shard CRC is reconciled from the per-block checksums by the GF(2)
 combine, with no byte pass. Tensors are views of the concatenated word
-stream (4-byte dtypes) or bounce through the host with a per-tensor CRC.
+stream; each that is not 4-byte words is also checked against its own
+CRC32C, on the card by the fused kernel.
 
 Payload format (byte-identical to the reference's): tensors sorted by
 name, each raw C-order at a 512-byte-aligned offset; the per-shard spec
@@ -53,11 +54,17 @@ Deliberate differences from the reference:
   narrows them to 32 bits under JAX's default config), and bf16
   (``"<V2"``) comes back as ``torch.bfloat16`` (the reference's device
   path refuses the void array it reads).
+- The device restore never moves a tensor through the host: a tensor
+  that is not 4-byte words is a view of the word stream too, checked
+  against its own CRC32C on the card (the reference bounces it through
+  the host for that check). The same tensors are checked against the
+  same CRCs, with the same error.
 """
 
 from __future__ import annotations
 
 import asyncio
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -75,8 +82,8 @@ from tpudfs_torch.client.local import (
 )
 from tpudfs_torch.common import ckptpaths, resilience, trace
 from tpudfs_torch.common.checksum import crc32c, crc32c_combine
-from tpudfs_torch.gpu import host_to_device, resolve_device
-from tpudfs_torch.gpu.hbm_reader import device_array_to_bytes
+from tpudfs_torch.gpu import resolve_device, u32_to_numpy
+from tpudfs_torch.gpu.crc32c_cuda import WORDS_PER_CHUNK, crc32c_blocks_device
 
 logger = logging.getLogger(__name__)
 
@@ -269,16 +276,20 @@ async def restore_shard_device(reader, client, spec: dict, device,
     through the host-verified path), the whole-shard CRC is reconciled from
     the master-recorded block checksums, and the shard falls back from the
     hot copy to the EC cold copy (``stats["degraded_shard_reads"]`` counts
-    it) before :class:`DegradedRestoreError`. 4-byte tensors are views of
-    the concatenated word stream; every other dtype bounces through the
-    host with its own CRC check.
+    it) before :class:`DegradedRestoreError`. Every tensor is a view of
+    the concatenated word stream on ``device``; one that is not 4-byte
+    words is also checked against its own CRC32C (on a card, one launch
+    of the fused CRC kernel a tensor and one readback a shard). A tensor
+    whose offset its dtype cannot view (no packer writes one) is a device
+    clone. Counters: ``restore.tensor_crc_bytes`` (bytes checked by their
+    own CRC) and ``restore.tensor_clones``.
 
     ``stage_s`` (optional) accumulates wall seconds, each the span of its
     name under ``restore.``: ``read`` (blocks into device memory,
     verified; failed attempts included), ``combined_crc``, ``assemble``
-    (concatenation and views) and ``bounce``, which is ``bounce_copy``
-    (device to host, the host copy, the upload) plus ``bounce_crc`` (the
-    tensors' host CRCs)."""
+    (concatenation and the 4-byte views) and ``bounce``, which is
+    ``bounce_copy`` (the other views, any clone) plus ``bounce_crc`` (their
+    CRCs: the launches, the readback, the compare)."""
     device = resolve_device(device)
     if stage_s is not None:
         for key in ("read", "combined_crc", "assemble", "bounce",
@@ -324,7 +335,7 @@ async def restore_shard_device(reader, client, spec: dict, device,
                 for b in blocks]
         words = flat[0] if len(flat) == 1 else torch.cat(flat)
         out: dict[str, torch.Tensor] = {}
-        bounce = []
+        own_crc = []
         for t in spec["tensors"]:
             dt = torch_dtype(t["dtype"])
             lo = t["offset"] // 4
@@ -332,26 +343,99 @@ async def restore_shard_device(reader, client, spec: dict, device,
                 out[t["name"]] = words[lo:lo + t["size"] // 4].view(dt) \
                     .reshape(t["shape"])
             else:
-                bounce.append((t, dt))
-    with trace.span("restore.bounce", stages=stage_s) as sp:
-        for t, dt in bounce:
-            # Not a whole number of 32-bit words (bf16 weights among them):
-            # through the host, checked by the tensor's own CRC.
+                own_crc.append((t, dt))
+    async with trace.span("restore.bounce", stages=stage_s) as sp:
+        if own_crc:
+            # Not a whole number of 32-bit words (bf16 weights among
+            # them): views of the stream too, each checked by its own CRC.
             sp.phase("restore.bounce_copy")
-            lo = t["offset"] // 4
-            raw = device_array_to_bytes(
-                words[lo:lo + _align(t["size"]) // 4], t["size"])
+            stream = words.view(torch.uint8)
+            base = words.storage_offset() * 4
+            clones = 0
+            for t, dt in own_crc:
+                off, size = t["offset"], t["size"]
+                raw = stream[off:off + size]
+                if raw.numel() != size:
+                    raise ChecksumMismatchError(
+                        f"tensor {t['name']!r} runs past its shard "
+                        "payload")
+                if (base + off) % dt.itemsize:
+                    # No packer writes such an offset; a view cannot take it.
+                    raw = raw.clone()
+                    clones += 1
+                out[t["name"]] = raw.view(dt).reshape(t["shape"])
+            trace.count("restore.tensor_clones", clones)
             sp.phase("restore.bounce_crc")
-            if crc32c(raw) != t["crc32c"]:
-                raise ChecksumMismatchError(
-                    f"tensor {t['name']!r} failed CRC on host bounce")
-            sp.phase("restore.bounce_copy")
-            # From the raw bits: numpy has no bf16, and a void array is no
-            # tensor.
-            bits = np.frombuffer(bytearray(raw), dtype=np.uint8)
-            out[t["name"]] = host_to_device(bits, device).view(dt) \
-                .reshape(t["shape"])
+            await _check_tensor_crcs(stream, [t for t, _ in own_crc],
+                                     [t["offset"] for t in spec["tensors"]])
+            trace.count("restore.tensor_crc_bytes",
+                        sum(t["size"] for t, _ in own_crc))
     return {t["name"]: out[t["name"]] for t in spec["tensors"]}
+
+
+async def _check_tensor_crcs(stream: torch.Tensor, tensors: list,
+                             offsets: list[int]) -> None:
+    """Each of ``tensors`` (spec entries) against its own CRC32C, over its
+    bytes in ``stream`` (the shard's payload bytes, uint8, on the device;
+    ``offsets`` every tensor's of the shard): on the CPU by the host
+    engine over the bytes in place, on a card by
+    :func:`padded_tensor_crcs` and one readback for the whole shard. On
+    both the host engine's CRC is the operand compared (of the tensor's
+    bytes, or of the zeros that pad its chunk range), which is what
+    portbench's ``no_verify`` control patches to take the check away."""
+    if stream.device.type == "cpu":
+        bad = [t for t in tensors
+               if crc32c(stream[t["offset"]:t["offset"] + t["size"]])
+               != t["crc32c"]]
+    else:
+        got = await asyncio.to_thread(
+            u32_to_numpy, padded_tensor_crcs(stream, tensors, offsets))
+        bad = [t for t, g in zip(tensors, got)
+               if not _padded_crc_agrees(t, int(g))]
+    if bad:
+        raise ChecksumMismatchError(
+            f"tensor {bad[0]['name']!r} failed its own CRC in the device "
+            "restore")
+
+
+def padded_tensor_crcs(stream: torch.Tensor, tensors: list,
+                       offsets: list[int]) -> torch.Tensor:
+    """Each of ``tensors``' CRC32C over its bytes in ``stream`` and the
+    zeros that pad them to whole 512-byte chunks, one
+    :func:`crc32c_blocks_device` call a tensor (on a card one launch of the
+    fused kernel), left on the device, uint32. The packers fill the gap to
+    the next tensor with zeros, and the reader a block grid's tail, so the
+    chunk range is read in place; a tensor off a chunk boundary, or whose
+    range reaches the next of ``offsets`` (no packer writes either), is
+    first copied into a zero-padded buffer."""
+    starts = sorted(offsets)
+    crcs = []
+    for t in tensors:
+        off, size = t["offset"], t["size"]
+        padded = _align(size)
+        i = bisect.bisect_right(starts, off)
+        end = min(starts[i] if i < len(starts) else stream.numel(),
+                  stream.numel())
+        if off % _ALIGN == 0 and off + padded <= end:
+            chunks = stream[off:off + padded]
+        else:
+            chunks = stream.new_zeros(padded)
+            chunks[:size] = stream[off:off + size]
+        crcs.append(crc32c_blocks_device(
+            chunks.view(torch.uint32).reshape(-1, WORDS_PER_CHUNK), 1)
+            .view(torch.int32))
+    return torch.cat(crcs).view(torch.uint32)
+
+
+def _padded_crc_agrees(t: dict, padded_crc: int) -> bool:
+    """Whether ``padded_crc``, the CRC32C of tensor ``t``'s bytes and the
+    zeros that pad them to whole chunks, is ``t``'s own CRC carried across
+    those zeros, ``crc32c_combine(t["crc32c"], crc32c(zeros), pad)``: the
+    combine is the carried CRC xor the zeros' CRC, so the zeros' CRC is
+    compared with the padded CRC xor the carried one."""
+    pad = _align(t["size"]) - t["size"]
+    return crc32c(bytes(pad)) == \
+        padded_crc ^ crc32c_combine(t["crc32c"], 0, pad)
 
 
 async def _check_combined_crc(client, path: str, spec: dict) -> None:
