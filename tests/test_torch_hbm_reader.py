@@ -242,18 +242,44 @@ async def test_reader_ec_degraded_detects_corrupt_shard(tmp_path):
         await c.stop()
 
 
-async def test_read_meta_blocks_fast_matches_general_path(tmp_path):
-    data = _rand(6 * 64 * 1024 + 100, seed=30)
+@pytest.mark.parametrize("verify,size,rot", [
+    ("lazy", 6 * 64 * 1024, False),
+    (True, 6 * 64 * 1024, False),
+    ("lazy", 6 * 64 * 1024 + 100, False),
+    (True, 6 * 64 * 1024 + 100, False),
+    ("lazy", 6 * 64 * 1024, True),
+    (True, 6 * 64 * 1024, True),
+], ids=["lazy", "eager", "tail-lazy", "tail-eager", "rot-lazy", "rot-eager"])
+async def test_read_meta_blocks_fast_matches_general_path(tmp_path, verify,
+                                                          size, rot):
+    """Over cached metadata, ``read_meta_blocks_fast`` gives the general
+    path's bytes and verdicts, eager or lazy, an unaligned tail block
+    included. A local replica rotted on disk after the metadata was cached
+    is caught by the device check and re-read from a healthy replica."""
+    data = _rand(size, seed=30)
     c, client = await _cluster(tmp_path, [("/wf/a", data)], local_reads=True)
     try:
         reader = port.HbmReader(client, [CPU])
         meta = await client.get_file_info("/wf/a")
-        prime = await reader.read_file_to_device_blocks("/wf/a", verify="lazy")
-        await reader.confirm(prime)
-        blocks = await reader.read_meta_blocks_fast(meta)
+        general = await reader.read_file_to_device_blocks("/wf/a",
+                                                          verify=verify)
+        await reader.confirm(general)
+        if rot:
+            await _corrupt_first_replica(c, client, "/wf/a")
+        before = reader.rereads
+        blocks = await reader.read_meta_blocks_fast(meta, verify=verify)
+        # Lazy defers every whole-chunk block's verdict; a tail block and
+        # an eager read settle theirs at once.
+        assert [b.pending_crc is not None for b in blocks] == [
+            verify == "lazy" and b.size % 512 == 0 for b in blocks]
         await reader.confirm(blocks)
         assert all(b.verified for b in blocks)
-        assert _port_bytes(blocks) == data
+        assert [b.verified for b in blocks] == [b.verified for b in general]
+        assert _port_bytes(blocks) == _port_bytes(general) == data
+        if rot:
+            assert reader.rereads - before >= 1
+        else:
+            assert reader.rereads == before == 0
     finally:
         await c.stop()
 

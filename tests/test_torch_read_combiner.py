@@ -9,6 +9,7 @@ inside the native pread, or on the device at ``confirm``). Also the port's
 own binding of the native block I/O library against its plain twin."""
 
 import os
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -17,7 +18,7 @@ import torch
 
 from tests.test_torch_hbm_reader import _cluster, _corrupt_first_replica, _rand
 from tpudfs.tpu import hbm_reader as ref
-from tpudfs_torch.common import native
+from tpudfs_torch.common import native, trace
 from tpudfs_torch.common.checksum import crc32c_plain
 from tpudfs_torch.gpu import hbm_reader as port
 from tpudfs_torch.gpu import u32_to_numpy
@@ -155,6 +156,43 @@ async def test_fused_read_mixed_block_sizes(tmp_path):
         assert all(b.verified for b in blocks)
         assert _bytes(blocks) == data
         assert [b.batch is not None for b in blocks] == [True, True, False]
+    finally:
+        await c.stop()
+
+
+async def test_fused_round_copies_are_counted_uploads(tmp_path):
+    """A round's copy goes through ``reused_to_device``, as every upload
+    of the read path: one ``reader.h2d`` span a round, inside its
+    ``combiner.upload``, and the round's bytes in ``h2d.pageable_bytes``
+    (the CPU device's round buffers are not pinned)."""
+    data = _rand(8 * BLOCK, seed=62)
+    c, client = await _cluster(tmp_path, [("/fu/h2d", data)])
+    try:
+        reader, comb = _batched_reader(client, True)
+        await _primed(reader, "/fu/h2d")
+        rounds = comb.rounds
+        counted = trace.counts()
+        spans, installed = [], trace._sink
+        trace.install(SimpleNamespace(add=lambda *span: spans.append(span)))
+        try:
+            blocks = await reader.read_file_to_device_blocks("/fu/h2d",
+                                                             verify="lazy")
+        finally:
+            trace.install(installed)
+        now = trace.counts()
+        assert all(b.batch is not None for b in blocks)
+        assert comb.rounds > rounds
+        uploads = {s[4] for s in spans if s[0] == "combiner.upload"}
+        copies = [s for s in spans if s[0] == "reader.h2d"]
+        assert len(copies) == len(uploads) == comb.rounds - rounds
+        assert all(s[5] in uploads for s in copies)
+        assert sum(s[3] for s in copies) == len(data)
+        moved = {k: now.get(k, 0) - counted.get(k, 0)
+                 for k in ("h2d.pageable_bytes", "h2d.pinned_bytes")}
+        assert moved == {"h2d.pageable_bytes": len(data),
+                         "h2d.pinned_bytes": 0}
+        await reader.confirm(blocks)
+        assert _bytes(blocks) == data
     finally:
         await c.stop()
 

@@ -91,6 +91,14 @@ def reused_to_device(src: torch.Tensor, device: torch.device):
         return out, done
 
 
+def wait_events(events: list) -> None:
+    """Block until every event that :func:`reused_to_device` returned
+    (None: nothing to wait for) has completed."""
+    for ev in events:
+        if ev is not None:
+            ev.synchronize()
+
+
 def _count_upload(src: torch.Tensor) -> None:
     trace.count("h2d.pinned_bytes" if src.is_pinned()
                 else "h2d.pageable_bytes", src.nbytes)

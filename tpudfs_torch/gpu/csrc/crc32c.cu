@@ -17,7 +17,8 @@
 // a nibble, so a chunk costs 1,024 lookups free of bank conflicts (32 a
 // lane) instead of 4,096 select-XORs, and the kernel runs within about
 // 1.2x of its loads alone, which take about 1.25x the byte bound at this
-// access pattern (gpu/probe_crc32c.py measures both).
+// access pattern (both timed with CUDA events on an H100 80GB HBM3 at
+// 700 W, the loads by a kernel that computes no CRC).
 //
 // Design:
 // - One warp per chunk: lane l loads words 4l..4l+3 as one uint4, so a

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import asyncio
 import ctypes
-import logging
 import threading
 
 import numpy as np
@@ -59,6 +58,7 @@ from tpudfs_torch.gpu import (
     resolve_device,
     reused_to_device,
     u32_to_numpy,
+    wait_events,
 )
 from tpudfs_torch.gpu.crc32c_cuda import (
     WORDS_PER_CHUNK,
@@ -66,14 +66,8 @@ from tpudfs_torch.gpu.crc32c_cuda import (
     bytes_to_words,
     crc32c_chunks_device,
 )
-from tpudfs_torch.gpu.read_combiner import (
-    DeviceBatch,
-    ReadCombiner,
-    wait_events,
-)
+from tpudfs_torch.gpu.read_combiner import DeviceBatch, ReadCombiner
 from tpudfs_torch.gpu.rs_cuda import pad_shard_len, rs_decode_device
-
-logger = logging.getLogger(__name__)
 
 #: Host bytes that one device's landing slots (:class:`SlotPool`) may
 #: hold: 16 slots of 64 MiB blocks. That is more blocks in flight than the
@@ -307,7 +301,21 @@ class HbmReader:
         batched ReadBlocks frame). None -> per-block path."""
         if not self.batch_reads or verify != "lazy":
             return None
-        return await self._combiner(device).read(block)
+        combiner = self._combiner(device)
+        rode = await combiner.read(block)
+        if rode is None:
+            return None
+        batch, index = rode
+        # The verdict waits for confirm unless the round was verified on
+        # the host, which leaves it no CRC vector; a round that a confirm
+        # has already resolved lost its vector there.
+        pending = batch.crcs is not None or batch.resolved is not None
+        return DeviceBlock(block["block_id"], None, int(block["size"]),
+                           not pending,
+                           expected_crc=int(block["checksum_crc32c"]),
+                           source=block, device=combiner.device,
+                           batch=batch, batch_index=index,
+                           batch_pending=pending)
 
     def warm_batches(self, cpb: int) -> None:
         """Allocate every round size's pooled buffer and load the CRC
@@ -448,9 +456,7 @@ class HbmReader:
         if all(s is not None for s in shards[:k]):
             def _assemble():
                 with trace.span("ec.stack"):
-                    need = -(-max(size, 1) // CHECKSUM_CHUNK_SIZE) \
-                        * CHECKSUM_CHUNK_SIZE
-                    buf = np.zeros(need, dtype=np.uint8)
+                    buf = np.zeros(padded_len(size), dtype=np.uint8)
                     off = 0
                     for s in shards[:k]:
                         take = min(len(s), size - off)
@@ -634,55 +640,19 @@ class HbmReader:
             crc = crc32c_combine(crc, crc32c(tail), tail_len)
         return crc == expected_crc
 
-    # ---------------------------------------------------- warm infeed sweep
+    # ------------------------------------------------- cached metadata
 
     async def read_meta_blocks_fast(
         self, meta: dict, device=None, verify: bool | str = "lazy",
     ) -> list[DeviceBlock]:
-        """Steady-state fast path: CACHED file metadata (no master
-        round-trip) and, where a block's replica is behind an already-probed
-        local store, pread + upload in ONE worker-thread hop. Falls back to
-        the general path per block. Returns lazy-verified DeviceBlocks;
-        resolve with ``confirm``."""
+        """Steady-state read of a file whose metadata the caller CACHED (no
+        master round-trip): every block through :meth:`read_block_to_device`
+        at once. Returns lazy-verified DeviceBlocks under the default
+        ``verify``; resolve them with ``confirm``."""
         device = device or self.devices[0]
-
-        async def fast_or_slow(block: dict) -> DeviceBlock:
-            db = await self._try_batched(block, device, verify)
-            if db is not None:
-                return db
-            store = None
-            if self.client.local_reads and not block.get("ec_data_shards"):
-                for addr in block.get("locations") or []:
-                    cached = self.client._local_stores.get(addr)
-                    if cached and cached[0] is not None:
-                        store = cached[0]
-                        break
-            device_verify = bool(verify) and bool(block.get("checksum_crc32c"))
-            if store is None or not device_verify:
-                return await self.read_block_to_device(block, device,
-                                                       verify=verify)
-
-            def fetch_put():
-                data = store.read(block["block_id"])
-                return host_to_device(bytes_to_words(data), device), len(data)
-
-            try:
-                words, size = await asyncio.to_thread(fetch_put)
-                # _finish_block verifies tail blocks eagerly even under
-                # "lazy"; its error must fall back too.
-                db = await self._finish_block(block, words, size, verify)
-            except Exception:
-                logger.debug("local fast-path read of block %s failed; "
-                             "retrying via general path",
-                             block.get("block_id"), exc_info=True)
-                return await self.read_block_to_device(block, device,
-                                                       verify=verify)
-            db.source = block
-            db.device = device
-            return db
-
         return list(await asyncio.gather(
-            *(fast_or_slow(b) for b in meta["blocks"])
+            *(self.read_block_to_device(b, device, verify=verify)
+              for b in meta["blocks"])
         ))
 
     # ---------------------------------------------------- native sweep pump
@@ -758,9 +728,9 @@ class HbmReader:
         if n:
             stride = max(expected_sizes)
             spb = stride // CHECKSUM_CHUNK_SIZE  # slot rows
-            on_card = device.type == "cuda"
             bufs = [torch.empty(round_blocks * stride, dtype=torch.uint8,
-                                pin_memory=on_card) for _ in range(ring)]
+                                pin_memory=device.type == "cuda")
+                    for _ in range(ring)]
             buf_words = [b.view(torch.int32).view(-1, WORDS_PER_CHUNK)
                          for b in bufs]
             sizes = np.zeros(n, dtype=np.int64)
@@ -798,14 +768,8 @@ class HbmReader:
                         hi = lo + nblk
                         ok = (sizes[lo:hi] == exp_sizes[lo:hi]) \
                             & (crcs[lo:hi] == exp_crcs[lo:hi])
-                        rows = buf_words[r % ring][: nblk * spb]
-                        if on_card:
-                            words = rows.to(device, non_blocking=True)
-                            copied[r] = torch.cuda.Event()
-                            copied[r].record(
-                                torch.cuda.current_stream(device))
-                        else:
-                            words = rows.clone()
+                        words, copied[r] = reused_to_device(
+                            buf_words[r % ring][: nblk * spb], device)
                     batch = DeviceBatch(words=words.view(torch.uint32),
                                         crcs=None, cpb=spb, nblocks=nblk)
                     for j in range(nblk):

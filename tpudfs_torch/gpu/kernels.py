@@ -8,9 +8,8 @@ source, so an edited kernel is rebuilt and a stale one is never loaded.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 :func:`time_ms` times a call on the card with CUDA events (``chip_smoke.py``
-and the design probes ``probe_crc32c.py`` and ``probe_gf256.py`` use it).
-Only the CUDA path imports this module: the CPU path (plain PyTorch twins)
-never builds or loads anything.
+uses it). Only the CUDA path imports this module: the CPU path (plain
+PyTorch twins) never builds or loads anything.
 """
 
 from __future__ import annotations
@@ -91,19 +90,6 @@ def build(names=None) -> dict[str, dict]:
         info[name] = {"so": str(so), "seconds": time.perf_counter() - t0,
                       "ptxas": (out + err).strip()}
     return info
-
-
-def build_other(src: Path) -> tuple[ctypes.CDLL, Path, str]:
-    """Another source with the same C entries as one of ``csrc`` (say, a
-    kernel from an earlier commit, for a design probe), built beside the
-    current ones under a name of its own: its loaded library, the library's
-    path and the compiler's report. The caller binds the entries."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{src.stem}_baseline-{digest}.so"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(src)],
-                         check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(so)), so, out.stdout + out.stderr
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -42,7 +42,12 @@ import torch
 from tpudfs_torch.client.local import is_error_named
 from tpudfs_torch.common import native, trace
 from tpudfs_torch.common.checksum import CHECKSUM_CHUNK_SIZE, crc32c
-from tpudfs_torch.gpu import device_constant, resolve_device
+from tpudfs_torch.gpu import (
+    device_constant,
+    resolve_device,
+    reused_to_device,
+    wait_events,
+)
 from tpudfs_torch.gpu.crc32c_cuda import (
     WORDS_PER_CHUNK,
     batch_block_crc_device,
@@ -93,13 +98,6 @@ def _bucket(n: int, cap: int) -> int:
     """Largest power of two ≤ min(n, cap): the round size actually taken."""
     n = min(n, cap)
     return 1 << (n.bit_length() - 1)
-
-
-def wait_events(events: list) -> None:
-    """Block until every recorded CUDA event (None: nothing) completed."""
-    for ev in events:
-        if ev is not None:
-            ev.synchronize()
 
 
 class ReadCombiner:
@@ -161,10 +159,10 @@ class ReadCombiner:
 
     # ------------------------------------------------------------- staging
 
-    async def read(self, block: dict):
-        """Stage one block; returns a DeviceBlock riding a DeviceBatch
-        (lazily verified on a card), or None when the block must take the
-        general path."""
+    async def read(self, block: dict) -> tuple[DeviceBatch, int] | None:
+        """Stage one block; returns the :class:`DeviceBatch` of the round
+        it rode and its index there (lazily verified on a card), or None
+        when the block must take the general path."""
         size = int(block.get("size") or 0)
         if (
             block.get("ec_data_shards")
@@ -442,22 +440,13 @@ class ReadCombiner:
         """Worker thread: one copy of the round's rows to the device and,
         unless verified on the host, one fused CRC launch behind it on the
         same stream. Returns (words, crcs, copy-done event or None)."""
-        done = None
-        if self.device.type == "cuda":
-            words = rows.view(torch.int32).to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        else:
-            # .to("cpu") would hand back the pooled buffer itself.
-            words = rows.view(torch.int32).clone()
+        words, done = reused_to_device(rows.view(torch.int32), self.device)
         words = words.view(torch.uint32)
         crcs = None if host_verified else \
             batch_block_crc_device(words, nblocks)
         return words, crcs, done
 
     async def _upload_stage(self, queue: asyncio.Queue) -> None:
-        from tpudfs_torch.gpu.hbm_reader import DeviceBlock
-
         #: copy-done events of the sub-rounds sharing the current
         #: (unreleased) buffer: a non-blocking copy has only been enqueued
         #: when .to() returns, so the buffer returns to the pool only once
@@ -507,15 +496,8 @@ class ReadCombiner:
             self.rounds += 1
             self.blocks += len(reqs)
             for i, r in enumerate(reqs):
-                db = DeviceBlock(
-                    r.block["block_id"], None, r.size, host_verified,
-                    expected_crc=int(r.block["checksum_crc32c"]),
-                    source=r.block, device=self.device,
-                    batch=batch, batch_index=i,
-                    batch_pending=not host_verified,
-                )
                 if not r.fut.done():
-                    r.fut.set_result(db)
+                    r.fut.set_result((batch, i))
 
     # -------------------------------------------------------------- warmup
 
