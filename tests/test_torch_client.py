@@ -29,7 +29,7 @@ from tpudfs.common import resilience as ref_resilience
 from tpudfs.master.service import Master
 from tpudfs.testing.ckptchaos import assert_restores_bit_exact, ckpt_tree
 from tpudfs_torch.client.client import Client
-from tpudfs_torch.common import checksum
+from tpudfs_torch.common import checksum, trace
 from tpudfs_torch.common import resilience as port_resilience
 from tpudfs_torch.gpu.checkpoint import CheckpointManager
 from tpudfs_torch.gpu.hbm_reader import HbmReader, device_array_to_bytes
@@ -157,7 +157,9 @@ async def test_same_metadata_checksums_and_crc64_etags(tmp_path):
 async def test_reads_after_chunkservers_stop(tmp_path):
     """Stop the holders of the EC file's first two data shards: the 3x file
     reads from its surviving replicas and every EC block that lost a data
-    shard decodes on the host, through both clients."""
+    shard decodes on the host, through both clients. The port's client
+    also lands each EC block's shards in the device reader's rows, three
+    a block, and the blocks come out whole."""
     c, port, ref = await _cluster(tmp_path)
     try:
         rep, ec = _rand(300_001, 4), _rand(300_001, 5)
@@ -178,6 +180,18 @@ async def test_reads_after_chunkservers_stop(tmp_path):
         shards = await port._read_ec_shards(meta["blocks"][0])
         assert shards[0] is None and shards[1] is None
         assert await port._read_ec_block(meta["blocks"][0]) == ec[:BLOCK]
+        counts = ("ec.rows_landed", "ec.rows_copied", "ec.shard_bytes")
+        before = trace.counts()
+        blocks = await HbmReader(port, [CPU]).read_file_to_device_blocks(
+            "/f/ec")
+        moved = {n: trace.counts().get(n, 0) - before.get(n, 0)
+                 for n in counts}
+        assert b"".join(device_array_to_bytes(b.array, b.size)
+                        for b in blocks) == ec
+        assert moved["ec.rows_landed"] + moved["ec.rows_copied"] == \
+            3 * len(blocks)
+        assert moved["ec.shard_bytes"] == sum(
+            3 * -(-b["size"] // 3) for b in meta["blocks"])
     finally:
         await _stop(c, port)
 

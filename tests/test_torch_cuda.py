@@ -534,6 +534,57 @@ def test_restore_lands_blocks_through_pinned_slots_on_card(cuda_device,
         s.nbytes for free in pool._free.values() for s in free)
 
 
+def test_cold_restore_lands_ec_blocks_through_pinned_slots_on_card(
+        cuda_device, tmp_path):
+    """Three cold restores into ``cuda:0`` in a row, the hot copy's
+    replicas gone and shards 0 and 3 of every RS(3,2) block lost: every
+    block is rebuilt from rows landed straight in the reader's pinned
+    slots (three a block, none copied), nothing is uploaded from pageable
+    memory, every tensor is bit-exact with the tree it was packed from,
+    and the third restore allocates no slot. Each slot holds a power of
+    two, and none stays taken."""
+    import chip_smoke
+    from tpudfs_torch.common import trace
+    from tpudfs_torch.gpu.checkpoint import restore_shard_device
+
+    client, spec, tree, metas = _shard_layout(tmp_path, seed=64)
+    for block in metas["/c/hot"]["blocks"]:
+        for addr in block["locations"]:
+            client._local_stores[addr][0].block_path(
+                block["block_id"]).unlink()
+    chip_smoke._drop_shards(client, metas["/c/ec"], (0, 3))
+    nblocks = len(metas["/c/ec"]["blocks"])
+    _restore(client, spec, cuda_device)  # the kernels' tables: uploaded once
+    reader = HbmReader(client, [cuda_device])
+    names = ("h2d.pageable_bytes", "ec.rows_landed", "ec.rows_copied",
+             "ec.blocks_rebuilt", "reader.slot_allocs")
+    for i in range(3):
+        stats = {"degraded_shard_reads": 0}
+        before = trace.counts()
+        out = asyncio.run(restore_shard_device(reader, client, spec,
+                                               cuda_device, stats))
+        torch.cuda.synchronize(cuda_device)
+        after = trace.counts()
+        moved = {k: after.get(k, 0) - before.get(k, 0) for k in names}
+        assert stats["degraded_shard_reads"] == 1
+        assert moved["h2d.pageable_bytes"] == 0, moved
+        assert moved["ec.rows_landed"] == 3 * nblocks, moved
+        assert moved["ec.rows_copied"] == 0, moved
+        assert moved["ec.blocks_rebuilt"] == nblocks, moved
+        if i == 2:
+            assert moved["reader.slot_allocs"] == 0, moved
+        for name, want in tree.items():
+            got = out[name]
+            assert got.device == cuda_device and got.dtype == want.dtype
+            assert torch.equal(got.cpu().reshape(-1).view(torch.uint8),
+                               want.reshape(-1).view(torch.uint8)), name
+        del out
+    pool = reader._pools[cuda_device]
+    slots = [s for free in pool._free.values() for s in free]
+    assert pool.pinned and pool.held == sum(s.nbytes for s in slots)
+    assert all(s.nbytes & (s.nbytes - 1) == 0 for s in slots)
+
+
 def test_restore_checks_non_word_tensors_by_their_own_crc_on_card(
         cuda_device, tmp_path, monkeypatch):
     """The tensors that are not 4-byte words (bf16 weights, int64 step,

@@ -109,8 +109,9 @@ def test_ec_infeed_lands_every_byte_and_counts_the_layout(
     rebuilt = sum(lost_index[b["block_id"]] < K for b in blocks)
     slen = {b["block_id"]: shard_len(b["size"], K) for b in blocks}
     want = {
-        # Eight shards a block; the flipped block's seven good ones again.
-        "ec.shard_bytes": 8 * sum(slen.values()) + 7 * slen[flipped["block_id"]],
+        # Six shards a block, parity only in place of a lost or corrupt
+        # data shard; the flipped block's six good ones again.
+        "ec.shard_bytes": K * (sum(slen.values()) + slen[flipped["block_id"]]),
         # The flipped block, joined from its raw data shards first where
         # no data shard is lost, fails its device check and is rebuilt.
         "ec.blocks_assembled": len(blocks) - rebuilt,

@@ -7,9 +7,11 @@ agree exactly. Also the short-circuit ``LocalClient`` over block stores
 written by one package and read by the other, and the per-block path's
 landing slots (``SlotPool``): reused under few workers and two event
 loops without a deadlock or an aliased block, and given back on every
-failure path."""
+failure path; an erasure-coded block's shards landed in a slot's rows,
+parity read only in place of a missing data shard."""
 
 import asyncio
+import itertools
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -27,9 +29,12 @@ from tpudfs.common.checksum import crc32c
 from tpudfs.tpu import hbm_reader as ref
 from tpudfs_torch.chunkserver.blockstore import BlockCorruptionError, BlockStore
 from tpudfs_torch.client.local import DfsError, LocalClient
-from tpudfs_torch.common import layout, trace
+from tpudfs_torch.common import layout, native, trace
+from tpudfs_torch.common.erasure import decode as ec_decode
+from tpudfs_torch.common.erasure import encode as ec_encode
 from tpudfs_torch.gpu import hbm_reader as port
 from tpudfs_torch.gpu import u32_to_numpy
+from tpudfs_torch.gpu.rs_cuda import pad_shard_len
 
 CPU = torch.device("cpu")
 
@@ -48,6 +53,11 @@ def _port_bytes(blocks):
 
 def _ref_bytes(blocks):
     return _joined(blocks, ref.device_array_to_bytes)
+
+
+def _moved(before: dict, names) -> dict:
+    after = trace.counts()
+    return {n: after.get(n, 0) - before.get(n, 0) for n in names}
 
 
 async def _cluster(tmp_path, files, *, n_cs=3, local_reads=False,
@@ -195,8 +205,10 @@ async def test_reader_retries_corrupt_replica(tmp_path, local_reads):
 
 
 async def test_reader_ec_degraded_reconstructs_on_device(tmp_path):
-    """Degraded EC read around two stopped chunkservers: the k survivors
-    are rebuilt by the GF(2^8) twin, and the device fold verifies them."""
+    """Degraded EC read around two stopped chunkservers through the
+    reference client, which returns each shard as bytes: the k survivors
+    are copied into the slot's rows, rebuilt by the GF(2^8) twin, and the
+    device fold verifies them."""
     data = _rand(192 * 512, seed=12)  # chunk-multiple: device fold path
     c, client = await _cluster(tmp_path, [("/ec/dev", data, (4, 2))], n_cs=6,
                                block_size=1 << 20)
@@ -208,7 +220,11 @@ async def test_reader_ec_degraded_reconstructs_on_device(tmp_path):
                 await cs.stop()
         ours = port.HbmReader(client, [CPU])
         theirs = ref.HbmReader(client, jax.devices()[:1])
+        before = trace.counts()
         mine = await ours.read_file_to_device_blocks("/ec/dev")
+        moved = _moved(before, ("ec.rows_landed", "ec.rows_copied"))
+        # The reference client returns bytes: each row copied in.
+        assert moved == {"ec.rows_landed": 0, "ec.rows_copied": 4}
         want = await theirs.read_file_to_device_blocks("/ec/dev")
         assert len(mine) == 1 and mine[0].verified and want[0].verified
         assert _port_bytes(mine) == _ref_bytes(want) == data
@@ -380,6 +396,80 @@ async def test_local_client_reads_reference_written_stores(tmp_path):
         await reader.read_file_to_device_blocks("/r/none")
 
 
+# ------------------------------------------------- the EC block's rows
+
+#: An EC file's blocks: one whose shards are whole rows of the decoder's
+#: width (no pad, whole chunks) and a tail whose rows have a pad.
+EC_SIZES = (12 * 512, 5 * 512 + 37)
+EC_COUNTS = ("ec.rows_landed", "ec.rows_copied", "ec.shard_bytes",
+             "ec.blocks_rebuilt", "ec.blocks_assembled")
+
+
+def _ec_layout(tmp_path, k, m, lost=(), sizes=EC_SIZES, path="/e/a"):
+    """An RS(k, m) file of ``sizes`` blocks on k + m local stores, shard j
+    of each block on store j, shards ``lost`` never written: the client,
+    the stores' handles, the metadata, the file's bytes and each block's
+    k + m shards."""
+    addrs, paths, handles = layout.stores(tmp_path, k + m)
+    data = _rand(sum(sizes), seed=50 + k)
+    blocks, shards, off = [], [], 0
+    for i, size in enumerate(sizes):
+        piece = data[off:off + size]
+        off += size
+        parts = ec_encode(piece, k, m)
+        for j, shard in enumerate(parts):
+            if j not in lost:
+                handles[addrs[j]].write(f"blk_ec_{i}", shard)
+        shards.append(parts)
+        blocks.append(layout.block_meta(f"blk_ec_{i}", size, addrs,
+                                        crc32c(piece), k=k, m=m))
+    metas = {path: {"path": path, "size": len(data), "blocks": blocks}}
+    return LocalClient(paths, metas), handles, metas, data, shards
+
+
+EC_CASES = [(k, m, lost) for k, m in ((3, 2), (6, 3))
+            for n in range(m + 1)
+            for lost in itertools.combinations(range(k + m), n)]
+
+
+@pytest.mark.parametrize("verify", [True, "lazy"])
+@pytest.mark.parametrize(
+    "k,m,lost", EC_CASES,
+    ids=[f"rs{k}{m}-lost-{'-'.join(map(str, lost)) or 'none'}"
+         for k, m, lost in EC_CASES])
+def test_ec_block_lands_in_its_rows(tmp_path, k, m, lost, verify):
+    """An RS(k, m) file read with shards ``lost`` gone, data or parity:
+    every block lands bit-exact with the host decode and the source, each
+    of its k rows read straight from a shard, none copied; k shards are
+    read a block, parity only in place of a lost data shard; the block is
+    rebuilt on the device where a data shard is lost, else joined."""
+    client, _handles, metas, data, shards = _ec_layout(tmp_path, k, m, lost)
+    reader = port.HbmReader(client, [CPU])
+
+    async def read():
+        blocks = await reader.read_file_to_device_blocks("/e/a",
+                                                         verify=verify)
+        await reader.confirm(blocks)
+        return blocks
+
+    before = trace.counts()
+    blocks = asyncio.run(read())
+    moved = _moved(before, EC_COUNTS)
+    assert all(b.verified for b in blocks)
+    for b, parts, size in zip(blocks, shards, EC_SIZES):
+        kept = [None if j in lost else s for j, s in enumerate(parts)]
+        assert port.device_array_to_bytes(b.array, b.size) == \
+            ec_decode(kept, k, m, size)
+    assert _port_bytes(blocks) == data
+    n = len(EC_SIZES)
+    rebuilt = n if any(j < k for j in lost) else 0
+    assert moved == {"ec.rows_landed": k * n, "ec.rows_copied": 0,
+                     "ec.shard_bytes": k * sum(len(p[0]) for p in shards),
+                     "ec.blocks_rebuilt": rebuilt,
+                     "ec.blocks_assembled": n - rebuilt}
+    assert reader.rereads == 0 and _taken(reader._pools[CPU]) == 0
+
+
 # ------------------------------------------- the per-block landing slots
 
 SLOT_BLOCK = 8 * 512
@@ -468,21 +558,75 @@ def test_slots_shared_by_two_event_loops(tmp_path, monkeypatch):
     assert _taken(pool) == 0
 
 
+def _stalled(read, block_id, started, go, wrote, before_into=False):
+    """``read`` (a store's ``read`` or ``read_verified``) whose read of
+    ``block_id`` waits for ``go`` after it asks for its buffer (or before,
+    ``before_into``) and before it writes there; ``started`` is set as it
+    begins to wait, ``wrote`` once that read has ended."""
+    def run(bid, offset=0, length=None, *, into=None):
+        if bid != block_id or into is None:
+            return read(bid, offset, length, into=into)
+
+        def gated(nbytes):
+            buf = None if before_into else into(nbytes)
+            started.set()
+            assert go.wait(10)
+            return buf if buf is not None else into(nbytes)
+
+        try:
+            return read(bid, offset, length, into=gated)
+        finally:
+            wrote.set()
+    return run
+
+
+def _ec_fault(tmp_path, fault):
+    """An RS(3,2) file of three SLOT_BLOCK blocks whose middle block fails
+    in one way; (client, block, data, the slot size of a block)."""
+    lost = (0, 1, 3) if fault == "ec_too_few" else (
+        (1,) if fault == "ec_missing_data" else ())
+    client, handles, metas, data, _shards = _ec_layout(
+        tmp_path, 3, 2, sizes=(SLOT_BLOCK,) * 3)
+    block = metas["/e/a"]["blocks"][1]
+    for j in lost:
+        handles[block["locations"][j]].block_path(block["block_id"]).unlink()
+    if fault == "ec_corrupt_data":
+        p = handles[block["locations"][1]].block_path(block["block_id"])
+        raw = bytearray(p.read_bytes())
+        raw[42] ^= 0xFF
+        p.write_bytes(bytes(raw))
+    slen = -(-SLOT_BLOCK // 3)
+    return client, block, data, 3 * pad_shard_len(slen)
+
+
 @pytest.mark.parametrize("fault", ["missing_replica", "corrupt_first_replica",
-                                   "short_read", "failed_verify"])
+                                   "short_read", "failed_verify",
+                                   "ec_missing_data", "ec_corrupt_data",
+                                   "ec_too_few", "ec_cancelled"])
 def test_slots_come_back_on_every_failure_path(tmp_path, monkeypatch, fault):
     """The middle block of a file fails in one way: no replica on disk
     (the read fails before it lands), its first replica flipped (caught on
     the device, re-read through the host-verified path), every replica cut
     short, or every replica and sidecar rewritten with one byte flipped
-    (only the device check trips). Afterwards no slot is taken, and the
+    (only the device check trips). Of an RS(3,2) file: a data shard
+    missing (parity takes its row), a data shard flipped (caught on the
+    device, re-read through the host-verified path, where it fails its
+    sidecar and parity takes its row), three shards missing (too few),
+    or the read cancelled while a shard's worker is to write its row (the
+    slot is dropped, not pooled). Afterwards no slot is taken, and the
     whole budget can be taken again at once."""
-    monkeypatch.setattr(port, "SLOT_BUDGET", 2 * SLOT_BLOCK)
-    client, handles, metas, datas = _slot_layout(
-        tmp_path, [("/f/a", 3 * SLOT_BLOCK)])
-    block = metas["/f/a"]["blocks"][1]
-    bid = block["block_id"]
-    stores = [handles[a] for a in block["locations"]]
+    if fault.startswith("ec_"):
+        client, block, data, size = _ec_fault(tmp_path, fault)
+        path = "/e/a"
+    else:
+        size, path = SLOT_BLOCK, "/f/a"
+        client, handles, metas, datas = _slot_layout(
+            tmp_path, [(path, 3 * SLOT_BLOCK)])
+        data = datas[path]
+        block = metas[path]["blocks"][1]
+        bid = block["block_id"]
+        stores = [handles[a] for a in block["locations"]]
+    monkeypatch.setattr(port, "SLOT_BUDGET", 2 * size)
     if fault == "missing_replica":
         for store in stores:
             store.block_path(bid).unlink()
@@ -495,16 +639,38 @@ def test_slots_come_back_on_every_failure_path(tmp_path, monkeypatch, fault):
         for store in stores:
             p = store.block_path(bid)
             p.write_bytes(p.read_bytes()[:SLOT_BLOCK - 100])
-    else:
-        raw = bytearray(datas["/f/a"][SLOT_BLOCK:2 * SLOT_BLOCK])
+    elif fault == "failed_verify":
+        raw = bytearray(data[SLOT_BLOCK:2 * SLOT_BLOCK])
         raw[7] ^= 1
         for store in stores:
             store.write(bid, bytes(raw))
     reader = port.HbmReader(client, [CPU])
-    read = reader.read_file_to_device_blocks("/f/a")
-    if fault == "corrupt_first_replica":
-        assert _port_bytes(asyncio.run(read)) == datas["/f/a"]
-        assert reader.rereads == 1
+    read = reader.read_file_to_device_blocks(path)
+    if fault == "ec_cancelled":
+        read.close()
+        started, go, wrote = (threading.Event() for _ in range(3))
+        store, _ = client._local_stores[block["locations"][0]]
+        store.read = _stalled(store.read, block["block_id"], started, go,
+                              wrote)
+
+        async def cancelled():
+            task = asyncio.create_task(
+                reader.read_block_to_device(block, CPU))
+            assert await asyncio.to_thread(started.wait, 10)
+            task.cancel()
+            with pytest.raises(asyncio.CancelledError):
+                await task
+            pool = reader._pools[CPU]
+            dropped = pool.held == 0 and not any(pool._free.values())
+            go.set()
+            assert await asyncio.to_thread(wrote.wait, 10)
+            return dropped
+
+        assert asyncio.run(asyncio.wait_for(cancelled(), 60))
+    elif fault in ("corrupt_first_replica", "ec_missing_data",
+                   "ec_corrupt_data"):
+        assert _port_bytes(asyncio.run(read)) == data
+        assert reader.rereads == (0 if fault == "ec_missing_data" else 1)
     else:
         with pytest.raises(DfsError):
             asyncio.run(read)
@@ -512,10 +678,73 @@ def test_slots_come_back_on_every_failure_path(tmp_path, monkeypatch, fault):
     assert pool.peak > 0 and _taken(pool) == 0
 
     async def take_budget():
-        return [await asyncio.wait_for(pool.take(SLOT_BLOCK), 5)
+        return [await asyncio.wait_for(pool.take(size), 5)
                 for _ in range(2)]
 
     assert len(asyncio.run(take_budget())) == 2
+
+
+def test_ec_slots_stop_growing_over_cold_restores(tmp_path, monkeypatch):
+    """The cold restore's layout at a small size, on a budget of three EC
+    blocks' slots: each restore first reads a hot copy whose replicas are
+    gone (each block takes a slot of its padded size and fails before it
+    lands), then the RS(3,2) copy with shards 0 and 3 lost, whose rows take
+    a few bytes more a block. The pool's slots settle on the rows' size:
+    after the second restore none is allocated, and the pool never holds
+    more than its budget."""
+    sizes = (SLOT_BLOCK,) * 5 + (1000,)
+    client, _handles, metas, data, _shards = _ec_layout(
+        tmp_path, 3, 2, (0, 3), sizes=sizes, path="/c/ec")
+    client.metas["/c/hot"] = dict(metas["/c/ec"], path="/c/hot", blocks=[
+        layout.block_meta(f"gone_{i}", b["size"], ["cs0:7000"],
+                          b["checksum_crc32c"])
+        for i, b in enumerate(metas["/c/ec"]["blocks"])])
+    slen = -(-SLOT_BLOCK // 3)
+    rows = 3 * pad_shard_len(slen)
+    assert rows > SLOT_BLOCK
+    monkeypatch.setattr(port, "SLOT_BUDGET", 3 * rows)
+    reader = port.HbmReader(client, [CPU])
+
+    async def restore():
+        with pytest.raises(DfsError):
+            await reader.read_file_to_device_blocks("/c/hot")
+        return await reader.read_file_to_device_blocks("/c/ec")
+
+    allocs = []
+    for _ in range(4):
+        before = trace.counts().get("reader.slot_allocs", 0)
+        assert _port_bytes(asyncio.run(restore())) == data
+        allocs.append(trace.counts()["reader.slot_allocs"] - before)
+    pool = reader._pools[CPU]
+    assert allocs[0] > 0 and allocs[2:] == [0, 0], allocs
+    assert 0 < pool.peak <= 3 * rows and _taken(pool) == 0
+
+
+def test_pinned_slots_count_what_they_pin():
+    """On a card a slot holds what PyTorch's caching host allocator pins
+    for it, the next power of two: the cold restore's RS(3,2) rows of a
+    64 MiB block (3 x 22,369,664 bytes) take a 128 MiB slot, which a hot
+    attempt's 64 MiB grid and a tail block then reuse; a block larger than
+    the budget gets none. Nothing is pinned here: a slot's buffer comes
+    with its first landing."""
+    pool = port.SlotPool(pinned=True)
+    rows = 3 * 22_369_664
+
+    async def takes():
+        ec = await pool.take(rows)
+        assert ec.nbytes == 1 << 27 and pool.held == pool.peak == 1 << 27
+        pool.give(ec)
+        for nbytes in (64 << 20, port.padded_len(10_000_000)):
+            slot = await pool.take(nbytes)
+            assert slot is ec
+            pool.give(slot)
+        assert await pool.take(port.SLOT_BUDGET + 1) is None
+
+    before = trace.counts().get("reader.slot_allocs", 0)
+    asyncio.run(takes())
+    assert trace.counts()["reader.slot_allocs"] - before == 1
+    assert pool.peak == pool.held == 1 << 27
+    assert all(s.buf is None for free in pool._free.values() for s in free)
 
 
 class _Hedged:
@@ -572,27 +801,10 @@ def test_slot_of_a_cancelled_read_is_not_written_under_its_next_owner(
         tmp_path, [("/c/a", SLOT_BLOCK), ("/c/b", SLOT_BLOCK)])
     a_id = metas["/c/a"]["blocks"][0]["block_id"]
     started, go, wrote = (threading.Event() for _ in range(3))
-
-    def stalled(read):
-        def run(block_id, offset=0, length=None, *, into=None):
-            if block_id != a_id or into is None:
-                return read(block_id, offset, length, into=into)
-
-            def gated(nbytes):
-                buf = into(nbytes) if stall == "after_into" else None
-                started.set()
-                assert go.wait(10)
-                return buf if buf is not None else into(nbytes)
-
-            try:
-                return read(block_id, offset, length, into=gated)
-            finally:
-                wrote.set()
-        return run
-
     for store, _ in client._local_stores.values():
-        store.read = stalled(store.read)
-        store.read_verified = stalled(store.read_verified)
+        for name in ("read", "read_verified"):
+            setattr(store, name, _stalled(getattr(store, name), a_id, started,
+                                          go, wrote, stall == "before_into"))
     copy = port.reused_to_device
 
     def late_copy(src, device):

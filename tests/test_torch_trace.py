@@ -208,9 +208,12 @@ def test_upload_counters_are_the_bytes_uploaded(tmp_path, sink, cold):
     # The blocks alone: the tensors that are not 4-byte words stay on the
     # device, as views checked by their own CRC.
     if cold:
-        # Three shards of each block, each padded to the decoder's width.
+        # Each block's three rows, one a shard padded to the decoder's
+        # width, or its chunk grid where that is longer.
+        from tpudfs_torch.gpu.hbm_reader import padded_len
         from tpudfs_torch.gpu.rs_cuda import pad_shard_len
-        blocks = sum(3 * pad_shard_len(-(-b["size"] // 3))
+        blocks = sum(max(3 * pad_shard_len(-(-b["size"] // 3)),
+                         padded_len(b["size"]))
                      for b in metas["/c/ec"]["blocks"])
     else:
         blocks = sum(-(-b["size"] // CHECKSUM_CHUNK_SIZE) * CHECKSUM_CHUNK_SIZE

@@ -63,7 +63,11 @@ import uuid
 from pathlib import Path
 
 from tpudfs_torch.chunkserver.blockstore import BlockStore
-from tpudfs_torch.client.local import ChecksumMismatchError, DfsError
+from tpudfs_torch.client.local import (
+    ChecksumMismatchError,
+    DfsError,
+    read_into_rows,
+)
 from tpudfs_torch.common import writestream
 from tpudfs_torch.common.blocknet import BlockConnPool
 from tpudfs_torch.common.checksum import crc32c, crc64nvme
@@ -158,6 +162,9 @@ def _uncovered(meta: dict, covered: int) -> DfsError:
 
 
 class Client:
+    #: ``_read_ec_shards`` lands shards in the caller's rows.
+    lands_ec_rows = True
+
     def __init__(
         self,
         master_addrs: list[str] | None = None,
@@ -1282,24 +1289,27 @@ class Client:
     async def _read_ec_shards(self, block: dict, *,
                                local_verify: bool = True,
                                reasons: list | None = None,
-                               ) -> list[bytes | None]:
+                               rows=None) -> list:
         """Concurrent fetch of all k+m shard slots; None per missing shard
         (reference read_ec_block's fan-out, mod.rs:1110-1150). ``reasons``
         (if given) collects one per-slot failure description — decode
         failures are rare enough that the error must carry WHY each slot
-        was missing."""
+        was missing. ``rows``: as for ``LocalClient._read_ec_shards``, the
+        shards read into the caller's k landing rows, parity only in place
+        of a missing data shard; a shard served over RPC comes back as
+        ``bytes``."""
         k = int(block["ec_data_shards"])
         m = int(block["ec_parity_shards"])
         locations = block["locations"]
 
-        async def fetch(i: int) -> bytes | None:
+        async def fetch(i: int, into=None) -> bytes | None:
             addr = locations[i] if i < len(locations) else ""
             if not addr:
                 if reasons is not None:
                     reasons.append(f"shard {i}: empty location")
                 return None
             local = await self._read_local(addr, block["block_id"], 0, 0,
-                                           verify=local_verify)
+                                           verify=local_verify, into=into)
             if local is not None:
                 return local
             try:
@@ -1315,6 +1325,8 @@ class Client:
                     reasons.append(f"shard {i}@{addr}: {e.message}")
                 return None
 
+        if rows is not None:
+            return await read_into_rows(fetch, k, m, rows)
         return list(await asyncio.gather(*(fetch(i) for i in range(k + m))))
 
     # Shards arrive via _read_ec_shards → _read_local (sidecar-verified) or

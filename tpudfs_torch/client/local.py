@@ -17,6 +17,8 @@ sources call.
 from __future__ import annotations
 
 import asyncio
+import functools
+import itertools
 import logging
 
 from tpudfs_torch.chunkserver.blockstore import BlockStore
@@ -49,6 +51,28 @@ def is_dfs_error(exc: BaseException) -> bool:
     return is_error_named(exc, "DfsError")
 
 
+async def read_into_rows(fetch, k: int, m: int, rows) -> list:
+    """An erasure-coded block's shards read into its k landing rows, as
+    HDFS's striped reader reads them: data shard i into ``rows(i,
+    nbytes)``, and a row whose data shard is missing or unreadable into
+    the next parity shard not yet tried, which is read only then.
+    ``fetch(i, into)`` reads shard i into ``into(nbytes)`` and returns
+    that buffer (or ``bytes``, which the caller copies in), None for a
+    shard missing or unreadable. Returns the k+m shard slots, None for
+    each not read; every read has ended when it returns."""
+    shards: list = [None] * (k + m)
+    spare = iter(range(k, k + m))
+
+    async def row(r: int) -> None:
+        for i in itertools.chain((r,), spare):
+            shards[i] = await fetch(i, functools.partial(rows, r))
+            if shards[i] is not None:
+                return
+
+    await asyncio.gather(*(row(r) for r in range(k)))
+    return shards
+
+
 class LocalClient:
     """Reads blocks from local block stores only.
 
@@ -56,6 +80,8 @@ class LocalClient:
     colocated chunkserver; ``metas``: ``{path: file metadata}``."""
 
     local_reads = True
+    #: ``_read_ec_shards`` lands shards in the caller's rows.
+    lands_ec_rows = True
 
     def __init__(self, stores: dict, metas: dict | None = None):
         #: addr -> (BlockStore, retry_at), the reference client's layout.
@@ -119,20 +145,25 @@ class LocalClient:
             f"no healthy local replica among {locations}"
         )
 
-    async def _read_ec_shards(self, block: dict, *, local_verify: bool = True
-                              ) -> list:
-        """All k+m shard slots of an EC block; None per missing shard."""
+    async def _read_ec_shards(self, block: dict, *, local_verify: bool = True,
+                              rows=None) -> list:
+        """All k+m shard slots of an EC block; None per missing shard.
+        ``rows``: optional ``rows(r, nbytes) -> writable buffer`` for the
+        block's k landing rows, read into as :func:`read_into_rows` says
+        (parity only in place of a missing data shard)."""
         k = int(block["ec_data_shards"])
         m = int(block["ec_parity_shards"])
         locations = block["locations"]
 
-        async def fetch(i: int):
+        async def fetch(i: int, into=None):
             addr = locations[i] if i < len(locations) else ""
             if not addr:
                 return None
             return await self._read_local(addr, block["block_id"], 0, 0,
-                                          verify=local_verify)
+                                          verify=local_verify, into=into)
 
+        if rows is not None:
+            return await read_into_rows(fetch, k, m, rows)
         return list(await asyncio.gather(*(fetch(i) for i in range(k + m))))
 
     async def _read_ec_block(self, block: dict) -> bytes:

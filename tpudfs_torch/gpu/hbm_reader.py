@@ -3,27 +3,34 @@ device — port of ``tpudfs/tpu/hbm_reader.py``.
 
 Per-block path: each block's bytes go from the fetch buffer (a zero-padded
 chunk grid the client reads straight into) to its target device in one
-copy. A replicated block's grid is a slot of the reader's
-:class:`SlotPool`, reused from block to block: pinned on a card, where
-the copy is enqueued from the event loop without waiting and the slot is
-written again only once an event behind that copy has completed; on the
-CPU the block's words are cloned out of it. A grid from any other
-source (a client that returns bytes, a second attempt at the block) is
-fresh pageable memory, copied in a worker. The whole-block CRC32C
-recorded at CompleteFile is computed on the device by one launch of the
-fused kernel (``crc32c.cu``: the per-512-byte-chunk CRCs and their GF(2)
-combine-fold), with no host readback. Under ``verify="lazy"`` every
+copy. A block lands in a slot of the reader's :class:`SlotPool`, reused
+from block to block: pinned on a card, where the copy is enqueued from
+the event loop without waiting and the slot is written again only once
+an event behind that copy has completed; on the CPU the block's words are
+cloned out of it. A replicated block's slot is its chunk grid; an
+erasure-coded block's holds k rows, one a shard (``_ec_block_to_device``).
+A grid from any other source (a client that returns bytes, a second
+attempt at a replicated block) is fresh pageable memory, copied in a
+worker. The whole-block CRC32C recorded at CompleteFile is computed on
+the device by one launch of the fused kernel (``crc32c.cu``: the
+per-512-byte-chunk CRCs and their GF(2) combine-fold), with no host
+readback. Under ``verify="lazy"`` every
 block's verdict stays on the device until :meth:`HbmReader.confirm`
 settles them all with one device→host copy. A degraded erasure-coded
 block is rebuilt on the device with kernel 2 (``gf256.cu``). Spans
 (``tpudfs_torch.common.trace``): ``reader.block`` around a block,
-``reader.grid`` around the grid's preparation (a slot's first allocation,
-the wait for its last copy, the tail's zero-fill), ``reader.verify``
-around the check, ``ec.read_shards`` around an erasure-coded block's
-shard reads, ``ec.stack``, ``ec.upload`` and ``ec.decode`` around its host
-side. Counters: ``ec.shard_bytes`` (the shard bytes read),
-``ec.blocks_assembled`` (blocks joined from their data shards) and
-``ec.blocks_rebuilt`` (blocks decoded on the device).
+``reader.grid`` around a replicated block's grid preparation (a slot's
+first allocation, the wait for its last copy, the tail's zero-fill),
+``reader.verify`` around the check, ``ec.read_shards`` around an
+erasure-coded block's shard reads, ``ec.stack`` around its rows'
+preparation (the slot made ready, the pads' zero-fill, any row copied in
+from returned bytes), ``ec.upload`` around its copy's enqueue and
+``ec.decode`` around its rebuild. Counters: ``ec.shard_bytes`` (the shard
+bytes read), ``ec.rows_landed`` (shards read straight into their row),
+``ec.rows_copied`` (rows copied in from returned bytes),
+``ec.blocks_assembled`` (blocks joined from their data shards),
+``ec.blocks_rebuilt`` (blocks decoded on the device), ``reader.slot_waits``
+and ``reader.slot_allocs`` (:class:`SlotPool`).
 
 Batched paths: with ``batch_reads > 0`` lazily verified blocks go through
 the read combiner (``read_combiner.py``: one native pread, one copy from a
@@ -83,10 +90,11 @@ def padded_len(nbytes: int) -> int:
 
 
 class _Slot:
-    """One reused host buffer of ``nbytes`` that a replicated block lands
-    in: ``buf`` (allocated by its first user: pinned on a card) and
-    ``copied``, the event recorded behind the last copy out of it (None:
-    no copy can still be reading it)."""
+    """One reused host buffer of ``nbytes`` that a block lands in: ``buf``
+    (allocated by its first user: pinned on a card) and ``copied``, the
+    event recorded behind the last copy out of it (None: no copy can
+    still be reading it). The ``landing`` and ``rows`` calls run where the
+    read runs, usually a worker thread."""
 
     __slots__ = ("nbytes", "buf", "host", "copied")
 
@@ -94,10 +102,8 @@ class _Slot:
         self.nbytes = nbytes
         self.buf = self.host = self.copied = None
 
-    def landing(self, nbytes: int, pinned: bool) -> np.ndarray:
-        """The slot's first ``nbytes`` for a read to land in, the rest of
-        their last chunk zeroed, once no copy reads the slot. Called where
-        the read runs, usually a worker thread."""
+    def _ready(self, pinned: bool) -> None:
+        """Allocated, and read by no copy."""
         if self.buf is None:
             self.buf = torch.empty(self.nbytes, dtype=torch.uint8,
                                    pin_memory=pinned)
@@ -105,8 +111,24 @@ class _Slot:
         elif self.copied is not None:
             self.copied.synchronize()
         self.copied = None
+
+    def landing(self, nbytes: int, pinned: bool) -> np.ndarray:
+        """The slot's first ``nbytes`` for a replicated block to land in,
+        the rest of their last chunk zeroed."""
+        self._ready(pinned)
         self.host[nbytes:padded_len(nbytes)] = 0
         return self.host[:nbytes]
+
+    def rows(self, k: int, slen: int, stride: int, nbytes: int,
+             pinned: bool) -> np.ndarray:
+        """The slot's first ``k * stride`` bytes as (k, stride) rows for an
+        erasure-coded block's shards of ``slen`` bytes, each row's pad past
+        ``slen`` and the bytes from the rows' end to ``nbytes`` zeroed."""
+        self._ready(pinned)
+        rows = self.host[:k * stride].reshape(k, stride)
+        rows[:, slen:] = 0
+        self.host[k * stride:nbytes] = 0
+        return rows
 
     def words(self, nbytes: int) -> torch.Tensor:
         """The chunk grid of the ``nbytes`` landed, as (chunks, 128) int32."""
@@ -121,13 +143,14 @@ def _wake(fut: asyncio.Future) -> None:
 
 class SlotPool:
     """One device's landing slots for the per-block path, reused by size
-    and allocated lazily, :data:`SLOT_BUDGET` bytes in all at most
-    (``peak``: the most they have held). A slot is taken on an event loop
-    before its block's read, waiting there while the pool is at its
-    budget (counter ``reader.slot_waits``), and given back once the block
-    is done or failed. A slot given back with its copy in flight is
-    written again only after that copy's event has completed. The pool is
-    bound to no loop: a waiter on any loop is woken from any thread."""
+    and allocated lazily (counter ``reader.slot_allocs``),
+    :data:`SLOT_BUDGET` bytes in all at most (``peak``: the most they have
+    held). A slot is taken on an event loop before its block's read,
+    waiting there while the pool is at its budget (counter
+    ``reader.slot_waits``), and given back once the block is done or
+    failed. A slot given back with its copy in flight is written again
+    only after that copy's event has completed. The pool is bound to no
+    loop: a waiter on any loop is woken from any thread."""
 
     def __init__(self, pinned: bool):
         self.pinned = pinned
@@ -138,12 +161,21 @@ class SlotPool:
                                   asyncio.Future]] = []
         self._lock = threading.Lock()
 
+    def size_of(self, nbytes: int) -> int:
+        """The bytes a slot for ``nbytes`` holds: on a card, what PyTorch's
+        caching host allocator pins for it, the next power of two."""
+        return 1 << max(nbytes - 1, 0).bit_length() if self.pinned \
+            else nbytes
+
     def _take_locked(self, nbytes: int) -> _Slot | None:
-        free = self._free.get(nbytes)
-        if free:
-            return free.pop()
+        # The smallest free slot that fits, of the size asked for where
+        # there is one; a larger one (a tail block's, an EC block's rows)
+        # before any slot is evicted.
+        fits = [n for n, free in self._free.items() if free and n >= nbytes]
+        if fits:
+            return self._free[min(fits)].pop()
         while self.held + nbytes > self.budget:
-            # Room from a free slot of another size.
+            # Room from a free slot too small.
             other = next((n for n, f in self._free.items() if f), None)
             if other is None:
                 return None
@@ -151,12 +183,14 @@ class SlotPool:
             self.held -= other
         self.held += nbytes
         self.peak = max(self.peak, self.held)
+        trace.count("reader.slot_allocs", 1)
         return _Slot(nbytes)
 
     async def take(self, nbytes: int) -> _Slot | None:
-        """A slot of ``nbytes`` (a padded block length); None for a block
-        larger than the whole budget, which lands as it did before the
-        pool."""
+        """A slot of at least ``nbytes`` (a padded block length, an EC
+        block's rows); None for a block larger than the whole budget, which
+        lands in fresh memory."""
+        nbytes = self.size_of(nbytes)
         if nbytes > self.budget:
             return None
         counted = False
@@ -440,74 +474,103 @@ class HbmReader:
     async def _ec_block_to_device(self, block: dict, device,
                                   verify: bool | str = True,
                                   safe_local: bool = False):
-        """EC block → device words. All data shards present: host concat
-        into the chunk grid + one upload. Degraded: upload the k surviving
-        shards and reconstruct on the device with kernel 2."""
+        """EC block → device words. The shards land in a slot of the
+        reader's pool as k rows of the decode kernel's width (the shard
+        length rounded up to 128 bytes, ``pad_shard_len``):
+        row i holds data shard i, or, where that shard is missing or
+        unreadable, a parity shard. The rows go up in one copy, enqueued
+        from the loop. All data shards in their rows: the rows are the
+        block's chunk grid (the device drops the rows' pads, where they
+        have any). Otherwise kernel 2 rebuilds the data rows on the device
+        from the inverse for the rows' own code-word indices.
+
+        A client with ``lands_ec_rows`` reads each shard straight into its
+        row (``_read_ec_shards``'s ``rows``: every read has ended when the
+        call returns); from any other, the shards returned as bytes are
+        copied into the rows in a worker."""
         k = int(block["ec_data_shards"])
         m = int(block["ec_parity_shards"])
         size = int(block.get("original_size") or block.get("size") or 0)
+        slen = -(-size // k)
+        stride = pad_shard_len(slen)  # the decode kernel's row width
+        need = padded_len(size)
+        nbytes = max(k * stride, need)
+        device = resolve_device(device)
         device_verify = bool(verify) and bool(block.get("checksum_crc32c"))
-        async with trace.span("ec.read_shards") as sp:
-            shards = await self.client._read_ec_shards(
-                block, local_verify=safe_local or not device_verify
-            )
-            sp.nbytes = nbytes = sum(len(s) for s in shards if s is not None)
-        trace.count("ec.shard_bytes", nbytes)
-        if all(s is not None for s in shards[:k]):
-            def _assemble():
-                with trace.span("ec.stack"):
-                    buf = np.zeros(padded_len(size), dtype=np.uint8)
-                    off = 0
-                    for s in shards[:k]:
-                        take = min(len(s), size - off)
-                        if take <= 0:
-                            break
-                        buf[off : off + take] = \
-                            np.frombuffer(s, dtype=np.uint8, count=take)
-                        off += take
+        pool = self._slot_pool(device)
+        # Taken here, on the loop: a worker never waits for a slot.
+        slot = await pool.take(nbytes)
+        pooled = slot is not None
+        if not pooled:  # a block larger than the whole budget
+            slot = _Slot(nbytes)
+        handed: list = [None] * k  # each row's last view handed to a read
+        rows = None
+
+        def land(r: int, n: int) -> np.ndarray:
+            if n != slen:
+                raise ChecksumMismatchError(
+                    f"EC block {block['block_id']}: a {n}-byte shard, "
+                    f"{slen} expected")
+            handed[r] = rows[r, :n]
+            return handed[r]
+
+        def prepare() -> np.ndarray:
+            with trace.span("ec.stack"):
+                return slot.rows(k, slen, stride, nbytes,
+                                 pooled and pool.pinned)
+
+        # True while a worker that may write the slot has not been seen to
+        # end (a cancelled read's): its slot is then dropped, not pooled.
+        writing = True
+        try:
+            rows = await asyncio.to_thread(prepare)
+            extra = {"rows": land} \
+                if getattr(self.client, "lands_ec_rows", False) else {}
+            async with trace.span("ec.read_shards") as sp:
+                shards = await self.client._read_ec_shards(
+                    block, local_verify=safe_local or not device_verify,
+                    **extra)
+                writing = False
+                sp.nbytes = got = sum(len(s) for s in shards
+                                      if s is not None)
+            trace.count("ec.shard_bytes", got)
+            order, copies = _place_rows(shards, handed, slen)
+            if None in order:
+                raise DfsError(
+                    f"EC block {block['block_id']}: only "
+                    f"{k - order.count(None)} of {k}+{m} shards available")
+            if copies:
+                def copy_in():
+                    with trace.span("ec.stack"):
+                        for r, data in copies:
+                            rows[r, :slen] = np.frombuffer(data,
+                                                           dtype=np.uint8)
+
+                writing = True
+                await asyncio.to_thread(copy_in)
+                writing = False
+            trace.count("ec.rows_landed", k - len(copies))
+            trace.count("ec.rows_copied", len(copies))
+            if pooled:
                 with trace.span("ec.upload"):
-                    return host_to_device(
-                        buf.view("<u4").reshape(-1, WORDS_PER_CHUNK), device)
-
-            words = await asyncio.to_thread(_assemble)
+                    up, slot.copied = reused_to_device(slot.buf[:nbytes],
+                                                       device)
+            else:  # pageable: the copy blocks for the whole transfer
+                up, _ = await asyncio.to_thread(reused_to_device,
+                                                slot.buf[:nbytes], device)
+        finally:
+            if pooled:
+                pool.give(slot, keep=not writing)
+        data_rows = up[:k * stride].view(k, stride)
+        if order == list(range(k)):
             trace.count("ec.blocks_assembled", 1)
-            return words, size
-        present = tuple(i for i, s in enumerate(shards) if s is not None)
-        if len(present) < k:
-            raise DfsError(
-                f"EC block {block['block_id']}: only {len(present)} of "
-                f"{k}+{m} shards available"
-            )
-        use = present[:k]
-        slen = len(shards[use[0]])
-        with trace.span("ec.stack"):
-            stack = np.zeros((k, pad_shard_len(slen)), dtype=np.uint8)
-            for r, idx in enumerate(use):
-                row = np.frombuffer(shards[idx], dtype=np.uint8)
-                if len(row) != slen:
-                    raise ChecksumMismatchError(
-                        f"EC block {block['block_id']}: shard length mismatch"
-                    )
-                stack[r, :slen] = row
-
-        def reconstruct():
-            with trace.span("ec.upload"):
-                avail = host_to_device(stack, device)
-            with trace.span("ec.decode"):
-                recon = rs_decode_device(avail, k, m, use)  # (k, padded)
-                nchunks = -(-size // CHECKSUM_CHUNK_SIZE) or 1
-                need = nchunks * CHECKSUM_CHUNK_SIZE
-                flat = recon[:, :slen].reshape(-1)
-                if flat.shape[0] < need:
-                    flat = torch.cat(
-                        [flat, flat.new_zeros(need - flat.shape[0])])
-                # Shard zero-padding means flat[size:] is zeros, so the
-                # slice to the chunk grid is exact (bytes_to_words pads the
-                # same way).
-                return flat[:need].view(torch.uint32).view(nchunks,
-                                                           WORDS_PER_CHUNK)
-
-        words = await asyncio.to_thread(reconstruct)
+            # Rows with no pad are the chunk grid, its tail zeroed.
+            return _grid_words(up if stride == slen
+                               else data_rows[:, :slen].reshape(-1),
+                               need), size
+        with trace.span("ec.decode"):
+            recon = rs_decode_device(data_rows, k, m, tuple(order))
+            words = _grid_words(recon[:, :slen].reshape(-1), need)
         self.ec_rebuilds += 1
         trace.count("ec.blocks_rebuilt", 1)
         return words, size
@@ -877,6 +940,44 @@ class HbmReader:
                     dtype=torch.int32, device=device))
             shards.append(torch.cat(parts).view(torch.uint32))
         return shards
+
+
+def _place_rows(shards: list, handed: list, slen: int):
+    """Each row's code-word index (None: no shard for the row) and the
+    (row, bytes) pairs to copy in, from ``_read_ec_shards``'s slots: a
+    shard that a read landed in a row stays there; one returned as bytes
+    goes to its own row if a data shard, else to the first row still
+    empty; one of another length than ``slen`` is left out."""
+    k = len(handed)
+    order: list = [None] * k
+    loose = []
+    for i, s in enumerate(shards):
+        if s is None:
+            continue
+        r = next((r for r, v in enumerate(handed) if v is s), None)
+        if r is not None:
+            order[r] = i
+        elif len(s) == slen:
+            loose.append((i, s))
+    copies = []
+    for i, s in loose:
+        empty = [r for r in range(k) if order[r] is None]
+        if not empty:
+            break
+        r = i if i in empty else empty[0]
+        order[r] = i
+        copies.append((r, s))
+    return order, copies
+
+
+def _grid_words(flat: torch.Tensor, need: int) -> torch.Tensor:
+    """A block's bytes on the device, ``flat`` (uint8), as its chunk grid
+    of ``need`` bytes: (chunks, 128) uint32, zero-padded past ``flat``.
+    The shards' own zero padding makes the bytes past the block's size
+    zeros (``bytes_to_words`` pads the same way)."""
+    if flat.shape[0] < need:
+        flat = torch.cat([flat, flat.new_zeros(need - flat.shape[0])])
+    return flat[:need].view(torch.uint32).view(-1, WORDS_PER_CHUNK)
 
 
 def device_array_to_bytes(arr: torch.Tensor, size: int) -> bytes:

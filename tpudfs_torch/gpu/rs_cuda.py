@@ -65,7 +65,7 @@ def pad_shard_len(n: int) -> int:
 @lru_cache(maxsize=256)
 def decode_matrix(k: int, m: int, present: tuple) -> np.ndarray:
     """(k, k) GF(2^8) matrix mapping the first k PRESENT shards (code-word
-    rows ``present[:k]``, in index order) back to the k data shards."""
+    rows ``present[:k]``, in that order) back to the k data shards."""
     rows = list(present)[:k]
     if len(rows) < k:
         raise ValueError(f"need {k} present shards, have {len(rows)}")
@@ -182,7 +182,7 @@ def rs_decode_device(avail: torch.Tensor, k: int, m: int, present: tuple, *,
     """Reconstruct the k data shards on the device from any k survivors.
 
     ``avail``: (k, L) uint8 — the shards at code-word indices
-    ``present[:k]`` (ascending). Returns the (k, L) data shards, bit-exact
+    ``present[:k]``, row by row in any order. Returns the (k, L) data shards, bit-exact
     with the host reconstruct. The erasure pattern's inverse is computed on
     the host once (cached) and handed to the kernel as runtime bit-planes;
     ``coefs`` overrides them (see ``gpu.state``)."""
